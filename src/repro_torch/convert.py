@@ -1,0 +1,48 @@
+"""Carry a training state between the JAX package's form and the port's.
+
+The JAX side is a nested dict of numpy arrays (``np.asarray`` of each JAX
+leaf: bfloat16 as an ``ml_dtypes`` array); the port's is a nested dict of
+tensors. bfloat16 crosses as its 16-bit pattern (``torch.Tensor.numpy()``
+refuses bf16), so no bit changes on the way. The tests move weights and
+state across with these two functions.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .core.codec import dtype_name
+from .core.save_path import to_host
+from .devices import resolve_device
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def from_jax_state(np_tree, device=None):
+    """Nested dict of numpy arrays → nested dict of tensors on `device`
+    (``None`` → CUDA)."""
+    import torch
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.array(a, order="C")       # a copy; keeps 0-d leaves 0-d
+        name = dtype_name(a)
+        if name == "bfloat16":
+            return torch.from_numpy(a.view(np.int16)).to(dev) \
+                .view(torch.bfloat16)
+        if name == "uint32":
+            return torch.from_numpy(a.view(np.int32)).to(dev) \
+                .view(torch.uint32)
+        return torch.from_numpy(a).to(dev)
+
+    return _map(leaf, np_tree)
+
+
+def to_numpy_state(state):
+    """Nested dict of tensors → nested dict of host numpy arrays; bfloat16
+    leaves come back as ``core.codec.BF16`` (their uint16 bit pattern,
+    logical dtype ``bfloat16``)."""
+    return _map(to_host, state)

@@ -1,0 +1,92 @@
+"""Split-state model — the PyTorch adaptation of MANA's split-process
+approach.
+
+MANA tags application memory as *upper half* (checkpointed) and MPI/network
+libraries as *lower half* (re-instantiated by a trivial MPI application on
+restart). Here:
+
+  upper half  = TrainState: {params, opt, step, rng} — a nested dict of
+                tensors. This is the ONLY thing checkpoints persist.
+  lower half  = device, streams, kernel libraries — derived from (config,
+                current machine) at restore time.
+
+Leaf names are the JAX package's: ``/``-joined dict keys, walked in SORTED
+key order (what ``jax.tree_util`` does with dicts), so a checkpoint written
+by either package names and orders its leaves identically.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+from dataclasses import asdict, dataclass
+
+
+def _items(tree):
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    return [(str(i), v) for i, v in enumerate(tree)]
+
+
+def leaf_paths(tree, prefix: str = ""):
+    """Stable string path per leaf, in flatten order — checkpoint shard
+    naming ("memory-region table" entries, Lesson 1)."""
+    out = []
+    for key, sub in _items(tree):
+        name = f"{prefix}/{key}" if prefix else key
+        if isinstance(sub, (dict, list, tuple)):
+            out.extend(leaf_paths(sub, name))
+        else:
+            out.append((name, sub))
+    return out
+
+
+def tree_unflatten(template, leaves):
+    """Rebuild `template`'s nested structure with `leaves` (in
+    ``leaf_paths`` order) in place of its leaves."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template has")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# lower half
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LowerHalfDescriptor:
+    """Recorded in the manifest FOR INFORMATION ONLY — restore never requires
+    any of it to match (that's the point of the split)."""
+    mesh_shape: tuple
+    mesh_axes: tuple
+    n_devices: int
+    runtime: str
+    config_digest: str
+
+    def to_json(self):
+        return asdict(self)
+
+
+def config_digest(cfg) -> str:
+    blob = json.dumps(asdict(cfg), sort_keys=True, default=str)
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def lower_half_descriptor(cfg, n_devices: int = 1) -> LowerHalfDescriptor:
+    import torch
+    return LowerHalfDescriptor(
+        mesh_shape=(n_devices,),
+        mesh_axes=("data",),
+        n_devices=n_devices,
+        runtime=f"torch-{torch.__version__}",
+        config_digest=config_digest(cfg),
+    )

@@ -1,0 +1,126 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for Hopper (``sm_90a``) into its own shared library, loaded with ``ctypes``
+(no PyTorch headers: a build takes seconds, not minutes). Libraries are
+built at first use from the sources in the checkout, into
+``build/torch_kernels/`` at the repository root (git-ignored; override with
+``REPRO_TORCH_BUILD_DIR``), and named by a hash of their source so an
+edited kernel is never served from a stale build. ``build_all`` compiles
+every kernel at once, one ``nvcc`` per source, all in parallel.
+
+Nothing here runs at import: the CPU test suite imports every module on a
+machine without ``nvcc``. A failed build raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+_P, _I64, _U32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
+# kernel → (C entry point, argument types); every entry point returns
+# cudaGetLastError() as an int, and takes PyTorch's stream last
+SIGNATURES = {
+    "gear_scan": ("rt_gear_scan", (_P, _P, _P, _I64, _U32, _U32, _P)),
+    "byteplane_fwd": ("rt_byteplane_fwd", (_P, _P, _I64, _I64, _P)),
+    "rle_emit": ("rt_rle_emit", (_P, _P, _P, _I64, _I64, _P)),
+}
+KERNELS = tuple(SIGNATURES)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+
+
+def nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be "
+                       "built")
+
+
+def _target(name: str) -> tuple:
+    src = SRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return src, build_dir() / f"{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start one nvcc build; returns (so path, Popen or None if built)."""
+    src, so = _target(name)
+    if so.exists():
+        return so, None
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return so, (proc, tmp)
+
+
+def _finish(name: str, so: Path, job) -> str:
+    if job is None:
+        return ""
+    proc, tmp = job
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {proc.returncode}):\n{out}")
+    so.with_suffix(".log").write_text(out)
+    os.replace(tmp, so)
+    return out
+
+
+def build_all(names=KERNELS) -> dict:
+    """Compile every kernel in parallel (one nvcc each); returns
+    {name: nvcc output} (empty for libraries already built)."""
+    with _lock:
+        jobs = {n: _start(n) for n in names}
+        return {n: _finish(n, *jobs[n]) for n in names}
+
+
+def kernel(name: str):
+    """The C entry point of kernel `name` (library built and loaded at
+    first use), with its argument types set."""
+    with _lock:
+        fn = _libs.get(name)
+        if fn is None:
+            so, job = _start(name)
+            _finish(name, so, job)
+            sym, argtypes = SIGNATURES[name]
+            fn = getattr(ctypes.CDLL(str(so)), sym)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _libs[name] = fn
+        return fn
+
+
+def launch(name: str, t, *args):
+    """Launch kernel `name` on PyTorch's current stream of `t`'s device
+    (arguments before the stream: `args`); raises if the launch failed."""
+    import torch
+    with torch.cuda.device(t.device):
+        err = kernel(name)(*args, torch.cuda.current_stream(t.device)
+                           .cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch "
+                           f"(cudaError {err})")
+

@@ -1,0 +1,243 @@
+"""The port's device encode (gear scan K1, byteplane forward K2, RLE
+emission K3 + glue) against the JAX package's Pallas kernels run in
+interpret mode, byte for byte (tolerance 0: candidates, transformed bytes
+and encoded streams are the dedup keyspace).
+
+On this CPU machine every wrapper takes its plain PyTorch version (the
+tensors lie on the CPU), which is exactly the arithmetic the CUDA kernels
+are held to on the card (``test_torch_cuda_kernels.py``)."""
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.core import cdc_scan as jscan
+from repro.core import codec as jcodec
+from repro.core.cdc import GearChunker as JGearChunker
+from repro.kernels.ckpt_codec import byteplane as jbp
+from repro.kernels.ckpt_codec import entropy as jent
+from repro_torch.core import cdc_scan as tscan
+from repro_torch.kernels.ckpt_codec import byteplane as tbp
+from repro_torch.kernels.ckpt_codec import entropy as tent
+
+B = jcodec.ENTROPY_BLOCK
+W = jscan.WINDOW
+
+
+def _masks(avg=1024):
+    ck = JGearChunker(avg)
+    return int(ck.mask_strict), int(ck.mask_loose)
+
+
+def _payload(n, kind, seed=0):
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return rng.integers(0, 256, n, dtype=np.uint8)
+    if kind == "zeros":
+        return np.zeros(n, np.uint8)
+    if kind == "runs":              # run lengths cross the 255 cap and the
+        reps = rng.integers(1, 700, size=max(n // 100, 1))   # block ends
+        vals = rng.integers(0, 256, size=reps.size, dtype=np.uint8)
+        return np.resize(np.repeat(vals, reps), n).astype(np.uint8)
+    if kind == "planes":            # byteplane'd small floats
+        f = (rng.standard_normal(max(n // 4, 1)) * 0.02).astype(np.float32)
+        t = jcodec.byteplane_forward(jcodec.contig_u8(f), 4)
+        return np.resize(t, n).astype(np.uint8)
+    raise AssertionError(kind)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.uint8).reshape(-1))
+
+
+# ---------------------------------------------------------------------------
+# K1 — gear scan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("size", [0, 1, W - 1, W, W + 1, 1000, 70_000,
+                                  200_001])
+def test_gear_scan_candidates_match_pallas_interpret(size):
+    ms, ml = _masks()
+    data = _payload(size, "random", seed=size).tobytes()
+    ref = jscan.GearScanner(ms, ml, backend="pallas", pallas_interpret=True)
+    port = tscan.GearScanner(ms, ml, backend="pallas", device="cpu")
+    rs, rl = ref.scan(data)
+    ps, pl_ = port.scan(data)
+    np.testing.assert_array_equal(ps, rs)
+    np.testing.assert_array_equal(pl_, rl)
+
+
+def test_gear_scan_full_mask_matches_pallas_kernel():
+    """Every mask byte, including the first window's halo positions that
+    extraction discards, equals the Pallas kernel's (two grid programs)."""
+    ms, ml = _masks(512)
+    padded = _payload(2 * tscan.PALLAS_BLOCK, "random", seed=3)
+    ref = np.asarray(jscan._pallas_scan_expr(jnp.asarray(padded), ms, ml,
+                                             interpret=True))
+    got = tscan.gear_scan(_t(padded), ms, ml).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("kind", ["zeros", "runs"])
+def test_gear_scan_low_entropy_and_segmented(kind):
+    """Constant/run payloads, and a payload past SEGMENT_BYTES with more
+    segments than the in-flight window: the segmented scan's halos and
+    deferred dispatches reproduce the numpy oracle exactly."""
+    ms, ml = _masks()
+    n = tscan.SEGMENT_BYTES * (tscan.MAX_INFLIGHT_SEGMENTS + 1) // 8 \
+        if kind == "zeros" else 100_000
+    data = _payload(n, kind, seed=5)
+    rs, rl = jscan.scan_candidates_numpy(data, ms, ml)
+    port = tscan.GearScanner(ms, ml, backend="pallas", device="cpu")
+    ps, pl_ = port.scan(data)
+    np.testing.assert_array_equal(ps, rs)
+    np.testing.assert_array_equal(pl_, rl)
+
+
+def test_segmented_scan_crosses_segments(monkeypatch):
+    ms, ml = _masks()
+    monkeypatch.setattr(tscan, "SEGMENT_BYTES", 70_000)
+    data = _payload(70_000 * (tscan.MAX_INFLIGHT_SEGMENTS + 2) + 1234,
+                    "random", seed=7)
+    rs, rl = jscan.scan_candidates_numpy(data, ms, ml)
+    for backend in ("pallas", "jnp"):
+        ps, pl_ = tscan.GearScanner(ms, ml, backend=backend,
+                                    device="cpu").scan(data)
+        np.testing.assert_array_equal(ps, rs)
+        np.testing.assert_array_equal(pl_, rl)
+
+
+# ---------------------------------------------------------------------------
+# K2 — byteplane forward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("itemsize", [1, 2, 4, 8])
+@pytest.mark.parametrize("size", [0, 1, 7, 4096, 65_541, 200_003])
+def test_byteplane_forward_matches_pallas_interpret(itemsize, size):
+    u8 = _payload(size, "planes" if size > 8 else "random", seed=size)
+    ref = np.asarray(jbp.forward_pallas(jnp.asarray(u8), itemsize=itemsize,
+                                        interpret=True))
+    got = tbp.forward_planes(_t(u8), itemsize).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(
+        got, jcodec.byteplane_forward(u8, itemsize))
+
+
+# ---------------------------------------------------------------------------
+# K3 — RLE emission, and the encode glue
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["random", "zeros", "runs", "planes"])
+@pytest.mark.parametrize("size", [1, 255, 4095, 4096, 4097, 9_000, 65_549])
+def test_rle_emission_matches_pallas_kernel(kind, size):
+    u8 = _payload(size, kind, seed=size)
+    nb = -(-size // B)
+    blk = np.zeros(nb * B, np.uint8)
+    blk[:size] = u8
+    blk = blk.reshape(nb, B)
+    r_emit, r_run = jent._rle_emission_pallas(jnp.asarray(blk), size,
+                                              interpret=True)
+    emit, run = tent.rle_emission(torch.from_numpy(blk), size)
+    np.testing.assert_array_equal(emit.numpy(), np.asarray(r_emit))
+    np.testing.assert_array_equal(run.numpy(), np.asarray(r_run))
+
+
+@pytest.mark.parametrize("kind", ["random", "zeros", "runs", "planes"])
+@pytest.mark.parametrize("size", [0, 1, 256, 4096, 4097, 8193, 65_549])
+def test_rle_encode_stream_matches_pallas_interpret(kind, size):
+    u8 = _payload(size, kind, seed=size + 1)
+    ref_s, ref_bl = jent.encode_stream(u8, "byteplane-rle",
+                                       backend="pallas", interpret=True)
+    got_s, got_bl = tent.encode_stream(u8, "byteplane-rle", device="cpu")
+    np.testing.assert_array_equal(got_s, ref_s)
+    np.testing.assert_array_equal(got_bl, ref_bl)
+    ora_s, ora_bl = jcodec.plane_stream_encode(u8, "byteplane-rle")
+    np.testing.assert_array_equal(got_s, ora_s)
+    np.testing.assert_array_equal(got_bl, ora_bl)
+
+
+def test_rans_device_stage_is_not_silently_substituted():
+    with pytest.raises(NotImplementedError):
+        tent.encode(_t(np.zeros(10, np.uint8)), "byteplane-rans")
+
+
+# ---------------------------------------------------------------------------
+# the fused three-stage dispatch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("itemsize,size,kind", [
+    (2, 150_002, "planes"), (4, 131_072, "planes"), (2, 90_001, "random"),
+    (4, 70_000, "zeros"), (1, 3_000, "runs"), (2, W, "random")])
+def test_fused_encode_matches_jax_pallas(itemsize, size, kind):
+    ms, ml = _masks(4096)
+    data = _payload(size, kind, seed=size)
+    ref = jscan.GearScanner(ms, ml, backend="pallas", pallas_interpret=True)
+    (rs, rl), rstream, rbl = ref.scan_transform_encode_async(
+        data, itemsize, "byteplane-rle").result()
+    port = tscan.GearScanner(ms, ml, backend="pallas", device="cpu")
+    (ps, pl_), pstream, pbl = port.scan_transform_encode_async(
+        data, itemsize, "byteplane-rle").result()
+    np.testing.assert_array_equal(ps, rs)
+    np.testing.assert_array_equal(pl_, rl)
+    np.testing.assert_array_equal(pstream, rstream)
+    np.testing.assert_array_equal(pbl, rbl)
+
+
+def test_concurrent_scans_share_the_staging_arena():
+    """Writer ranks scan from several threads at once; the staging arena
+    and the launch path are shared. Results must equal the oracle's."""
+    ms, ml = _masks()
+    payloads = [_payload(70_000 * 5 + i, "random", seed=i) for i in range(12)]
+    refs = [jscan.scan_candidates_numpy(p, ms, ml) for p in payloads]
+    errors = []
+
+    def worker(i):
+        try:
+            sc = tscan.GearScanner(ms, ml, backend="pallas", device="cpu")
+            for _ in range(3):
+                got = sc.scan(payloads[i])
+                if not all(np.array_equal(x, y)
+                           for x, y in zip(got, refs[i])):
+                    errors.append(i)
+        except Exception as e:   # noqa: BLE001 — reported below
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tscan, "SEGMENT_BYTES", 70_000)
+            threads = [threading.Thread(target=worker, args=(i,))
+                       for i in range(len(payloads))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+
+
+def test_unported_routes_raise():
+    ms, ml = _masks()
+    sc = tscan.GearScanner(ms, ml, backend="pallas", device="cpu")
+    with pytest.raises(NotImplementedError):
+        sc.scan_transform_async(b"\x00" * 100, 2)
+    with pytest.raises(NotImplementedError):
+        tscan.transform_async(b"\x00" * 100, 2)
+
+
+def test_backend_resolution_keeps_jax_vocabulary():
+    ms, ml = _masks()
+    sc = tscan.GearScanner(ms, ml, backend="auto", device="cpu")
+    assert sc.resolve(tscan.MIN_ACCEL_BYTES - 1) == "numpy"
+    assert sc.resolve(tscan.MIN_ACCEL_BYTES) == "jnp"
+    assert not sc.accelerator_present()
+    assert tscan.GearScanner(ms, ml, backend="pallas",
+                             device="cpu").resolve(10) == "pallas"
+    with pytest.raises(ValueError):
+        tscan.GearScanner(ms, ml, backend="xla", device="cpu")
