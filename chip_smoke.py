@@ -4,35 +4,48 @@
     python3 chip_smoke.py                # everything, as documented below
     python3 chip_smoke.py --parity-only  # build + kernel parity, no main path
     python3 chip_smoke.py --profile      # + device time of save 2 / restore
+                                         #   and of the uninterrupted serve
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
-2. Kernel parity on the card: each kernel against its plain PyTorch version
+2. Kernel parity on the card: K1-K3 against their plain PyTorch versions
    byte for byte (tolerance 0) on 64 MiB of random bytes, ragged lengths,
    all-zero and constant runs (runs > 255, across 4096-byte blocks, a
    partial last block) and itemsizes 1/2/4/8; the gear scan's candidates
-   against the numpy oracle on a 16 MiB slice; the RLE glue's stream
-   against the numpy codec oracle.
-3. The main path: the full gemma3-1b training state (bf16 params, f32
-   AdamW moments; 321 leaves, ~10.0 GB) on the card, saved by
+   against the numpy oracle on a 16 MiB slice; the RLE and rANS glue's
+   streams and the K2+K1 ``scan_transform_async`` route against the numpy
+   oracles. K7 (RMSNorm) and K8 (flash attention) against their plain
+   versions in f32 and bf16 over the ``tests/test_kernels.py`` sweeps and
+   the serving path's shapes, within that file's tolerances; the reduced
+   gemma3-1b model on the card (kernels) against the same model on the
+   CPU (plain versions) in f32.
+3. The checkpoint path: the full gemma3-1b training state (bf16 params,
+   f32 AdamW moments; 321 leaves, ~10.0 GB) on the card, saved by
    ``CheckpointManager`` as an incremental CDC round (params through the
    fused K2+K1+K3 dispatch, moments through the segmented K1 scan), ~10% of
    the leaves changed, saved again asynchronously, restored onto the card
-   and compared bit for bit. Every kernel's launch count must be > 0, and
+   and compared bit for bit. The launch counts of K1-K3 must be > 0, and
    two leaves re-encoded by the host oracle must give the same chunk
    digests.
-4. Prints one JSON line of per-kernel numbers (CUDA-event times at the
-   main path's largest shapes, bounds from the bytes each kernel moves),
-   one JSON line of end-to-end save/restore numbers, and last the
-   ``{"ok": true, "device": ...}`` line. Any failure exits non-zero.
+4. The serving path: ``repro_torch.launch.serve.run`` serves full-width
+   gemma3-1b in bf16 (8 requests, 2048-token prompts, 64 new tokens)
+   uninterrupted, then again preempted at token 32 into a fresh workdir,
+   then resumed from that checkpoint; the resumed tokens must equal the
+   uninterrupted run's, and the launch counts of K7 and K8 must be > 0.
+5. Prints one JSON line of per-kernel numbers (CUDA-event times at each
+   path's largest shapes, bounds from the bytes or operations each kernel
+   needs, the plain version's and a library call's time), one JSON line of
+   end-to-end numbers, and last the ``{"ok": true, "device": ...}`` line.
+   Any failure exits non-zero.
 
 It imports nothing of JAX or of the ``repro`` package. Scratch checkpoints
-go to ``build/chip_smoke_store`` (removed at the end), logs to
-``chiprun_out/``.
+go to ``build/chip_smoke_store`` and ``build/chip_smoke_serve`` (removed at
+the end), logs to ``chiprun_out/``.
 """
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -41,6 +54,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
+BF16_FLOPS = 989e12                # H100 SXM dense bf16, NVIDIA data sheet
+F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
+# cuBLAS picks the same algorithms run to run on one stream; the workspace
+# setting makes that hold for any stream layout too (set before CUDA starts)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 MIN_FREE_BYTES = 25e9
 MiB = 1 << 20
 
@@ -79,16 +97,21 @@ class DeviceProfile:
     """``with DeviceProfile(on) as p:`` traces the CUDA activity of the
     block with ``torch.profiler`` when `on`; ``p.summary(wall_s)`` then
     gives device-busy seconds (kernels + copies, one stream: they do not
-    overlap), the idle share of the wall time, and the top entries."""
+    overlap), the idle share of the wall time, and the top entries. With
+    `host`, the host's operators are traced too and the summary adds the
+    top ones by self CPU time."""
 
-    def __init__(self, on: bool):
+    def __init__(self, on: bool, host: bool = False):
         self.on = on
+        self.host = host
         self.prof = None
 
     def __enter__(self):
         if self.on:
             from torch.profiler import ProfilerActivity, profile
-            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            acts = [ProfilerActivity.CUDA] + \
+                ([ProfilerActivity.CPU] if self.host else [])
+            self.prof = profile(activities=acts)
             self.prof.__enter__()
         return self
 
@@ -101,15 +124,28 @@ class DeviceProfile:
     def summary(self, wall_s: float):
         if self.prof is None:
             return None
+        from torch.autograd import DeviceType
+        # device-side events only (kernels, copies): with the host traced,
+        # each operator also carries its kernels' device time
         rows = sorted(((e.key, e.count, e.self_device_time_total)
                        for e in self.prof.key_averages()
-                       if e.self_device_time_total > 0),
+                       if e.self_device_time_total > 0
+                       and e.device_type != DeviceType.CPU),
                       key=lambda r: -r[2])
         busy = sum(r[2] for r in rows) / 1e6
-        return {"wall_s": wall_s, "device_busy_s": busy,
-                "idle_share": 1.0 - busy / wall_s,
-                "top": [{"name": k[:80], "count": c, "ms": us / 1e3}
-                        for k, c, us in rows[:12]]}
+        out = {"wall_s": wall_s, "device_busy_s": busy,
+               "idle_share": 1.0 - busy / wall_s,
+               "top": [{"name": k[:80], "count": c, "ms": us / 1e3}
+                       for k, c, us in rows[:12]]}
+        if self.host:
+            ops = sorted(((e.key, e.count, e.self_cpu_time_total)
+                          for e in self.prof.key_averages()
+                          if e.self_cpu_time_total > 0),
+                         key=lambda r: -r[2])
+            out["host_self_s"] = sum(r[2] for r in ops) / 1e6
+            out["host_top"] = [{"name": k[:80], "count": c, "ms": us / 1e3}
+                               for k, c, us in ops[:15]]
+        return out
 
 
 def time_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -138,7 +174,7 @@ def parity(dev):
 
     from repro_torch.core import cdc_scan
     from repro_torch.core.cdc import GearChunker
-    from repro_torch.core.codec import plane_stream_encode
+    from repro_torch.core.codec import byteplane_forward, plane_stream_encode
     from repro_torch.kernels.ckpt_codec import byteplane as bp
     from repro_torch.kernels.ckpt_codec import entropy as ent
 
@@ -206,11 +242,142 @@ def parity(dev):
     rs, rbl = plane_stream_encode(t, "byteplane-rle")
     if not (np.array_equal(s, rs) and np.array_equal(bl, rbl)):
         fail("byteplane-rle stream on the card != numpy oracle")
+    # the rANS glue: same framed stream as the numpy oracle
+    w = torch.randn(2 * MiB, generator=g, device=dev).mul_(0.02) \
+        .to(torch.bfloat16).view(torch.uint8)
+    t = bp.forward_plain(w, 2).cpu().numpy()
+    s, bl = ent.encode_stream(t, "byteplane-rans", device=dev)
+    rs, rbl = plane_stream_encode(t, "byteplane-rans")
+    if not (np.array_equal(s, rs) and np.array_equal(bl, rbl)):
+        fail("byteplane-rans stream on the card != numpy oracle")
+    # K2+K1 without the entropy stage, and K2 alone: the routes of fixed
+    # chunking and device_entropy=False
+    data = w.cpu().numpy()
+    sc = cdc_scan.GearScanner(ms, ml, backend="pallas", device=dev)
+    (gs, gl), gt = sc.scan_transform_async(data, 2).result()
+    rt = byteplane_forward(data, 2)
+    rs, rl = cdc_scan.scan_candidates_numpy(rt, ms, ml)
+    if not (np.array_equal(gt, rt) and np.array_equal(gs, rs)
+            and np.array_equal(gl, rl)):
+        fail("scan_transform_async on the card != numpy oracle")
+    if not np.array_equal(cdc_scan.transform_async(data, 2, dev).result(),
+                          rt):
+        fail("transform_async on the card != numpy oracle")
     say(f"parity: {checks + 2} kernel/plain comparisons byte-identical "
-        f"({len(inputs)} inputs, k in 1/2/4/8); 16 MiB candidate slice "
-        f"and RLE stream identical to the numpy oracles")
+        f"({len(inputs)} inputs, k in 1/2/4/8); 16 MiB candidate slice, "
+        f"RLE and rANS streams, scan_transform_async and transform_async "
+        f"identical to the numpy oracles")
     del inputs
     torch.cuda.empty_cache()
+
+
+# tolerances of tests/test_kernels.py:34, :66 (the sums run in another
+# order than the plain versions')
+RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# (B, Sq, H, K, D, causal, window, softcap): the test_kernels.py sweeps,
+# then the serving path's prefill shapes (local and global layers)
+ATTN_CASES = [
+    (1, 64, 4, 4, 32, True, 0, 0.0), (2, 128, 4, 1, 16, True, 0, 0.0),
+    (1, 96, 8, 2, 64, True, 0, 0.0), (1, 60, 2, 2, 16, True, 0, 0.0),
+    (1, 80, 4, 2, 32, True, 16, 0.0), (1, 80, 4, 2, 32, True, 0, 30.0),
+    (1, 80, 4, 2, 32, False, 24, 0.0), (1, 80, 4, 2, 32, False, 0, 0.0),
+    (8, 2048, 4, 1, 256, True, 512, 0.0), (8, 2048, 4, 1, 256, True, 0, 0.0),
+]
+# (rows shape, D): the test_kernels.py sweep, then the path's widths
+RMS_CASES = [((16,), 64), ((37,), 96), ((3, 5), 128), ((8 * 2048,), 1152),
+             ((8 * 2048, 4), 256), ((8, 1), 1152)]
+
+
+def model_kernel_parity(dev):
+    """K7 and K8 against their plain versions on the card, f32 and bf16."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rn
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for rows, d in RMS_CASES:
+            x = randn(*rows, d, dtype=dtype)
+            s = (randn(d, dtype=torch.float32) * 0.1).to(dtype)
+            err = (rn.rmsnorm_fused(x, s).float()
+                   - rn.rmsnorm_plain(x, s).float()).abs().max().item()
+            if not err <= RMS_TOL[name]:
+                fail(f"K7 rmsnorm {name} rows={rows} D={d}: max abs err "
+                     f"{err} > {RMS_TOL[name]}")
+            worst[f"rmsnorm_{name}"] = max(worst.get(f"rmsnorm_{name}", 0),
+                                           err)
+        for B, S, H, K, D, causal, window, cap in ATTN_CASES:
+            q = randn(B, S, H, D, dtype=dtype)
+            k = randn(B, S, K, D, dtype=dtype)
+            v = randn(B, S, K, D, dtype=dtype)
+            kw = dict(causal=causal, window=window, softcap=cap)
+            err = (fa.flash_attention(q, k, v, **kw).float()
+                   - fa.flash_attention_plain(q, k, v, **kw).float()) \
+                .abs().max().item()
+            if not err <= ATTN_TOL[name]:
+                fail(f"K8 flash_attention {name} B={B} S={S} H={H} K={K} "
+                     f"D={D} {kw}: max abs err {err} > {ATTN_TOL[name]}")
+            key = f"flash_attention_{name}"
+            worst[key] = max(worst.get(key, 0), err)
+        torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    say(f"parity: K7 over {len(RMS_CASES)} shapes and K8 over "
+        f"{len(ATTN_CASES)} shapes/masks, f32 and bf16, within tolerance; "
+        f"worst max abs err {json.dumps(worst)}")
+    worst["model_logits"] = model_reference(dev)
+    return worst
+
+
+def model_reference(dev, atol: float = 1e-4) -> float:
+    """Reduced gemma3-1b (f32, window 16) on the card — norms and prefill
+    attention through K7/K8 — against the same weights on the CPU, where
+    the wrappers take their plain versions: prefill and four decode steps
+    (the ring buffers wrap) give the same logits within `atol` (the f32
+    tolerance of the CPU tests against the JAX package) and the same
+    greedy tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import Model
+    model = Model(reduced(get_config("gemma3-1b")))
+    cpu = torch.device("cpu")
+    params = {"cpu": model.init(seed=3, device=cpu)}
+    params["gpu"] = _to(params["cpu"], dev)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 128, (4, 40), dtype=np.int32))
+    runs = {}
+    for key, d in (("cpu", cpu), ("gpu", dev)):
+        logits, cache = model.prefill(params[key], tokens.to(d),
+                                      cache_len=48)
+        seq = [logits.cpu()]
+        tok = logits.argmax(-1).int()
+        for _ in range(4):
+            logits, cache = model.decode_step(params[key], cache, tok)
+            seq.append(logits.cpu())
+            tok = logits.argmax(-1).int()
+        runs[key] = torch.stack(seq)
+    err = (runs["gpu"] - runs["cpu"]).abs().max().item()
+    if not (torch.isfinite(runs["gpu"]).all() and err <= atol
+            and torch.equal(runs["gpu"].argmax(-1), runs["cpu"].argmax(-1))):
+        fail(f"reduced gemma3-1b on the card disagrees with the CPU: "
+             f"max abs logit err {err} (tolerance {atol})")
+    say(f"model: reduced gemma3-1b prefill + 4 decode steps on the card "
+        f"match the CPU plain versions (max abs logit err {err})")
+    return err
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -421,6 +588,185 @@ def kernel_table(dev, embed, launches: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 4 — the serving path
+# ---------------------------------------------------------------------------
+
+SERVE = dict(full_config=True, n_requests=8, prompt_len=2048, gen_len=64,
+             ckpt_every=0, seed=0)
+PREEMPT_AT = 32
+
+
+def serving(dev, card: str, profile: bool = False):
+    """Serve full-width gemma3-1b uninterrupted, then preempted at token 32
+    and resumed; the tokens must match and K7/K8 must have launched.
+    `profile` traces the uninterrupted run (device and host)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.launch import serve
+
+    root = ROOT / "build" / "chip_smoke_serve"
+    shutil.rmtree(root, ignore_errors=True)
+    vocab = get_config("gemma3-1b").vocab_size
+    try:
+        rn.launches = fa.launches = 0
+        t0 = time.monotonic()
+        with DeviceProfile(profile, host=True) as prof:
+            full = serve.run("gemma3-1b", workdir=str(root / "full"),
+                             device=dev, **SERVE)
+        full_s = time.monotonic() - t0
+        per_run = {"rmsnorm": rn.launches, "flash_attention": fa.launches}
+        pre = serve.run("gemma3-1b", workdir=str(root / "pre"),
+                        preempt_at=PREEMPT_AT, device=dev, **SERVE)
+        res = serve.run("gemma3-1b", workdir=str(root / "pre"),
+                        device=dev, **SERVE)
+        launches = {"rmsnorm": rn.launches,
+                    "flash_attention": fa.launches}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        # the serving store's fast tier (core.storage.default_store: a
+        # burst buffer in /dev/shm, per process)
+        shutil.rmtree(Path("/dev/shm") / f"repro-bb-{os.getpid()}",
+                      ignore_errors=True)
+    say(f"serving: launches {launches} (uninterrupted run alone: "
+        f"{per_run})")
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"kernel {k} was not launched on the serving path")
+    toks = full["tokens"]
+    if not (full["status"] == res["status"] == "completed"
+            and pre["status"] == "preempted"
+            and toks.shape == (SERVE["n_requests"], SERVE["gen_len"])
+            and ((toks >= 0) & (toks < vocab)).all()):
+        fail(f"serving runs ended {full['status']}/{pre['status']}/"
+             f"{res['status']} or gave tokens out of range")
+    if not np.array_equal(pre["tokens"][:, :PREEMPT_AT],
+                          toks[:, :PREEMPT_AT]):
+        fail("the preempted run's tokens differ before the preemption")
+    if not np.array_equal(res["tokens"], toks):
+        fail("the resumed run's tokens differ from the uninterrupted run's")
+    stats = {"arch": "gemma3-1b", "n_requests": SERVE["n_requests"],
+             "prompt_len": SERVE["prompt_len"],
+             "gen_len": SERVE["gen_len"], "preempt_at": PREEMPT_AT,
+             "prefill_s": full["prefill_s"],
+             "decode_tok_per_s": full["tok_per_s"],
+             "decode_s": full["decode_s"], "uninterrupted_s": full_s,
+             "save_s": pre["save_s"], "save_bytes": pre["save_bytes"],
+             "restore_s": res["restore_s"],
+             "resumed_decode_tok_per_s": res["tok_per_s"],
+             "token_exact": True, "launches": launches,
+             "launches_uninterrupted": per_run, "profiled": profile,
+             "card": card}
+    if profile:
+        stats["device_uninterrupted"] = prof.summary(full_s)
+    say(f"serving: prefill {stats['prefill_s']:.3f} s, decode "
+        f"{stats['decode_tok_per_s']:.1f} tok/s, preempt save "
+        f"{stats['save_s']:.3f} s / {stats['save_bytes']} bytes, restore "
+        f"{stats['restore_s']:.3f} s; resumed tokens identical")
+    return stats, launches
+
+
+def model_kernel_table(dev, launches: dict) -> list:
+    """K7 and K8 at the serving path's largest shapes (bf16): the block
+    norm over the prefill's 8·2048 rows of 1152, and a global layer's
+    causal attention (B 8, S 2048, H 4, K 1, D 256)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rn
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    bf = torch.bfloat16
+    rows = []
+    # K7
+    n, d = 8 * 2048, 1152
+    x = torch.randn((n, d), generator=g, device=dev).to(bf)
+    sc = (torch.randn((d,), generator=g, device=dev) * 0.1).to(bf)
+    w = 1.0 + sc
+    err = (rn.rmsnorm_fused(x, sc).float()
+           - rn.rmsnorm_plain(x, sc).float()).abs().max().item()
+    rows.append({
+        "name": "rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm/kernel.py:24",
+        "launches": launches["rmsnorm"], "max_abs_err": err,
+        "tolerance": RMS_TOL["bfloat16"],
+        "ms": time_ms(lambda: rn.rmsnorm_fused(x, sc), iters=50),
+        "plain_ms": time_ms(lambda: rn.rmsnorm_plain(x, sc), iters=20),
+        "bound_ms": (2 * n * d + d) * 2 / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": time_ms(lambda: F.rms_norm(x, (d,), weight=w,
+                                                 eps=rn.EPS), iters=50),
+        "shape": [n, d], "dtype": "bfloat16"})
+    del x
+    # K8
+    B, S, H, K, D = 8, 2048, 4, 1, 256
+    q = torch.randn((B, S, H, D), generator=g, device=dev).to(bf)
+    k = torch.randn((B, S, K, D), generator=g, device=dev).to(bf)
+    v = torch.randn((B, S, K, D), generator=g, device=dev).to(bf)
+    err = (fa.flash_attention(q, k, v, causal=True).float()
+           - fa.flash_attention_plain(q, k, v, causal=True).float()) \
+        .abs().max().item()
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    pairs = B * H * fa.unmasked_pairs(S, S, True, 0)
+    flops = 4 * D * pairs
+    moved = (2 * q.numel() + k.numel() + v.numel()) * 2
+    row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:88",
+        "launches": launches["flash_attention"], "max_abs_err": err,
+        "tolerance": ATTN_TOL["bfloat16"],
+        "ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                      iters=5),
+        "plain_ms": time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=True), iters=3),
+        "bound_ms": max(flops / BF16_FLOPS, moved / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / BF16_FLOPS
+        > moved / HBM_BYTES_PER_S else "bytes",
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=5),
+        "shape": [B, S, H, K, D], "dtype": "bfloat16", "causal": True,
+        "window": 0, "flops": flops}
+    # the local layers' shape: window 512, blocks past the window skipped;
+    # the library yardstick takes an explicit band mask
+    band = fa._mask(S, S, True, 512, dev)
+    row["ms_window512"] = time_ms(lambda: fa.flash_attention(
+        q, k, v, causal=True, window=512), iters=5)
+    row["library_ms_window512"] = time_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                               enable_gqa=True), iters=5)
+    row["bound_ms_window512"] = 4 * D * B * H * fa.unmasked_pairs(
+        S, S, True, 512) / BF16_FLOPS * 1e3
+    rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rans_stage_ms(dev) -> dict:
+    """The byteplane-rans device entropy stage (PyTorch ops, no kernel of
+    its own yet) on 64 MiB of a bf16 leaf's transformed stream."""
+    import torch
+
+    from repro_torch.kernels.ckpt_codec import byteplane as bp
+    from repro_torch.kernels.ckpt_codec import entropy as ent
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    w = torch.randn(32 * MiB, generator=g, device=dev).mul_(0.02) \
+        .to(torch.bfloat16).view(torch.uint8)
+    t = bp.forward_plain(w, 2)
+    ms = time_ms(lambda: ent.encode(t, "byteplane-rans", ent.rle_emission),
+                 iters=2)
+    rle = time_ms(lambda: ent.encode(t, "byteplane-rle", ent.rle_emission),
+                  iters=2)
+    return {"bytes": t.numel(), "rans_encode_ms": ms,
+            "rle_encode_ms": rle}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -444,6 +790,7 @@ def main() -> int:
         "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     dev = torch.device("cuda")
     parity(dev)
+    model_kernel_parity(dev)
     if "--parity-only" in sys.argv[1:]:
         say(card)
         say(json.dumps({"ok": True, "device": {
@@ -456,12 +803,18 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     rows = kernel_table(dev, embed, launches)
+    del embed
+    torch.cuda.empty_cache()
+    serve_stats, serve_launches = serving(
+        dev, card, profile="--profile" in sys.argv[1:])
+    rows += model_kernel_table(dev, serve_launches)
+    stats["rans_stage"] = rans_stage_ms(dev)
     say(card)
-    say(json.dumps({"main_path": stats}))
+    say(json.dumps({"main_path": stats, "serving": serve_stats}))
     say(json.dumps({"kernels": rows}))
     (out_dir / "chip_smoke_report.json").write_text(
-        json.dumps({"card": card, "main_path": stats, "kernels": rows},
-                   indent=1))
+        json.dumps({"card": card, "main_path": stats,
+                    "serving": serve_stats, "kernels": rows}, indent=1))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -41,6 +41,15 @@ def from_jax_state(np_tree, device=None):
     return _map(leaf, np_tree)
 
 
+def params_from_jax(np_params, device=None):
+    """The JAX ``Model.init`` parameter tree (nested dict of numpy arrays)
+    → the port's ``Model`` parameter tree on `device`: the same nested
+    names and stacked stage axes, so ``split_state.leaf_paths`` of a
+    serving checkpoint match the JAX package's one for one. A thin alias of
+    ``from_jax_state``, named for this use."""
+    return from_jax_state(np_params, device)
+
+
 def to_numpy_state(state):
     """Nested dict of tensors → nested dict of host numpy arrays; bfloat16
     leaves come back as ``core.codec.BF16`` (their uint16 bit pattern,

@@ -35,15 +35,18 @@ Two device routes, both asynchronous (dispatch now, ``result()`` later):
                                completed; a ticket waits on its own events,
                                never on the whole device.
   scan_transform_encode_async  the fused three-stage dispatch for the
-                               chunk-encoded codec ``byteplane-rle``: K2
-                               transform, K1 scan of the transformed stream,
-                               K3 + glue entropy encode, one upload and one
-                               event per payload.
+                               chunk-encoded codecs (``byteplane-rle``,
+                               ``byteplane-rans``): K2 transform, K1 scan of
+                               the transformed stream, K3 + glue entropy
+                               encode, one upload and one event per payload.
+  scan_transform_async         K2 then K1 over the transformed stream, no
+                               entropy stage: candidates plus the
+                               transformed stream come back together.
+  transform_async              K2 alone (fixed chunking, or a host codec
+                               stage after the transform).
 
-The other JAX routes (``transform_async`` and ``scan_transform_async``:
-byteplane codecs without the device entropy stage) are not ported yet and
-raise ``NotImplementedError``; ``CodecPolicy(device_precondition=False)``
-takes the host encoder for those codecs.
+The last two upload through the pinned staging arena as ``scan_async``
+does and record one event per payload.
 """
 from __future__ import annotations
 
@@ -332,15 +335,9 @@ class ScanTicket:
         return self._done
 
 
-class FusedEncodeTicket:
-    """Handle for one fused transform + scan + plane-entropy dispatch.
-    ``result()`` waits on the dispatch's event and returns
-    ``((strict, loose), stream, block_lens)``: candidate end offsets over
-    the transformed stream, the framed RLE block stream (host uint8,
-    byte-identical to the oracle encoding of the oracle transform) and
-    per-block encoded lengths (headers included) whose prefix sums let
-    the save path slice any plane-block-aligned chunk's encoding out of
-    the stream without re-encoding."""
+class _Deferred:
+    """A dispatch whose ``result()`` is computed once, on first call (or
+    given up front as `done` by the inline host paths)."""
 
     __slots__ = ("_resolve", "_done")
 
@@ -355,16 +352,83 @@ class FusedEncodeTicket:
         return self._done
 
 
-def _not_ported(route: str):
-    raise NotImplementedError(
-        f"{route} (a byteplane codec without the device entropy stage) is "
-        "not ported to the CUDA path yet; use "
-        "CodecPolicy(device_precondition=False) for the host encoder")
+class FusedEncodeTicket(_Deferred):
+    """Handle for one fused transform + scan + plane-entropy dispatch.
+    ``result()`` waits on the dispatch's event and returns
+    ``((strict, loose), stream, block_lens)``: candidate end offsets over
+    the transformed stream, the framed RLE/rANS block stream (host uint8,
+    byte-identical to the oracle encoding of the oracle transform) and
+    per-block encoded lengths (headers included) whose prefix sums let
+    the save path slice any plane-block-aligned chunk's encoding out of
+    the stream without re-encoding."""
+
+    __slots__ = ()
 
 
-def transform_async(payload, itemsize: int):
-    """Standalone device byteplane transform: not ported yet."""
-    _not_ported("transform_async")
+class FusedScanTicket(_Deferred):
+    """Handle for one fused transform + scan dispatch. ``result()`` returns
+    ``((strict, loose), transformed)``: candidate end offsets computed over
+    the transformed stream (byte-identical to the numpy oracle scanning the
+    oracle transform) plus the transformed payload as a host uint8
+    array."""
+
+    __slots__ = ()
+
+
+class TransformTicket(_Deferred):
+    """Handle for one standalone device byteplane transform (no candidate
+    scan). ``result()`` returns the transformed stream as a host uint8
+    array, byte-identical to the oracle."""
+
+    __slots__ = ()
+
+
+def _stage(data: np.ndarray, device):
+    """Copy a host payload into a staging buffer (pinned on a CUDA device)
+    and start its upload; returns (staging buffer, device tensor)."""
+    staging = _ARENA.acquire(len(data), device.type == "cuda")
+    staging.numpy()[:] = data
+    return staging, _upload(staging, device)
+
+
+def _resolver(event, staging, outs, finish):
+    """``result()`` body of a device dispatch: wait on its event, turn the
+    downloaded tensors `outs` into numpy arrays (copies of arena buffers,
+    which return to the pool), and hand them to `finish`."""
+    def resolve():
+        if event is not None:
+            event.synchronize()
+        arrays = []
+        for t in outs:
+            if t.is_pinned():
+                arrays.append(t.numpy().copy())
+                _ARENA.release(t, event)
+            else:
+                arrays.append(t.numpy())
+        _ARENA.release(staging, event)
+        return finish(*arrays)
+    return resolve
+
+
+def transform_async(payload, itemsize: int, device=None) -> TransformTicket:
+    """Async byteplane forward transform WITHOUT a candidate scan — the
+    save path uses this when the codec wants pre-conditioned bytes but the
+    chunk grid is not content-defined over them (fixed chunking, or a host
+    codec stage after the transform). On `device` (``None`` → CUDA) the
+    payload goes up through the staging arena, K2 runs once (its plain
+    version on a CPU device) and the stream comes back into pinned memory.
+    Below the acceleration threshold the host oracle runs inline — same
+    bytes either way."""
+    data = as_u8(payload)
+    if len(data) < MIN_ACCEL_BYTES:
+        return TransformTicket(
+            done=codec_mod.byteplane_forward(data, itemsize))
+    from ..kernels.ckpt_codec import byteplane as bp
+    dev = resolve_device(device)
+    staging, raw = _stage(data, dev)
+    t = _download(bp.forward_planes(raw, int(itemsize)), from_arena=True)
+    return TransformTicket(resolve=_resolver(_record(dev), staging, (t,),
+                                             lambda a: a))
 
 
 # ---------------------------------------------------------------------------
@@ -457,10 +521,36 @@ class GearScanner:
             for start, seg_len, total in spans[:MAX_INFLIGHT_SEGMENTS])
         return ScanTicket(pending, spans[MAX_INFLIGHT_SEGMENTS:], dispatch)
 
-    def scan_transform_async(self, payload, itemsize: int):
-        """Device transform + scan without the entropy stage: not ported
-        yet."""
-        _not_ported("scan_transform_async")
+    def scan_transform_async(self, payload, itemsize: int) \
+            -> FusedScanTicket:
+        """The byteplane forward transform (K2) and the candidate scan of
+        the *transformed* stream (K1) as ONE device round-trip: one upload
+        through the staging arena, one event, the mask and the stream
+        downloaded together. Below the acceleration threshold (or on the
+        numpy backend) the host oracle runs both stages inline: same
+        bytes, same candidates."""
+        import torch
+        data = as_u8(payload)
+        n = len(data)
+        backend = self.resolve(n)
+        if backend == "numpy" or n <= WINDOW:
+            t = codec_mod.byteplane_forward(data, itemsize)
+            done = (scan_candidates_numpy(t, self.mask_strict,
+                                          self.mask_loose)
+                    if n > WINDOW else (_EMPTY, _EMPTY))
+            return FusedScanTicket(done=(done, t))
+        transform, scan, _ = self._ops(backend)
+        dev = self.device
+        staging, raw = _stage(data, dev)
+        t = transform(raw, int(itemsize))
+        padded = torch.zeros(padded_len(n), dtype=torch.uint8, device=dev)
+        padded[WINDOW:WINDOW + n] = t
+        mask = scan(padded, self.mask_strict, self.mask_loose)
+        outs = (_download(mask, from_arena=True),
+                _download(t, from_arena=True))
+        return FusedScanTicket(resolve=_resolver(
+            _record(dev), staging, outs,
+            lambda m, tt: (extract(m, 0, n, n), tt)))
 
     def scan_transform_encode_async(self, payload, itemsize: int,
                                     entropy_codec: str) \

@@ -470,7 +470,7 @@ class CheckpointManager:
             save_timeout_s=self.save_timeout_s, crash=crash,
             overlapped=overlapped,
             device_precondition=self.device_precondition,
-            device_entropy=self.device_entropy)
+            device_entropy=self.device_entropy, device=self.device)
         if not outcome.ok:
             # ABORT leaks nothing: no manifest, no LATEST move, and no
             # refcounts published — chunk objects a dead rank managed to

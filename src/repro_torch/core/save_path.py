@@ -207,8 +207,11 @@ class SaveSession:
 
     def __init__(self, chunks: ChunkStore, *, crash: CrashInjector = NO_CRASH,
                  on_chunk=None, chunker=None, dirs: set | None = None,
-                 window: int | None = None):
+                 window: int | None = None, device=None):
         self._chunks = chunks
+        # where a standalone device transform runs (the manager's device;
+        # a CDC chunker's scanner carries its own)
+        self._device = device
         self._crash = crash
         self._on_chunk = on_chunk
         self._chunker = chunker
@@ -340,7 +343,8 @@ class SaveSession:
                 # (chunk-relative blocks — still a pure function of the
                 # chunk bytes)
                 from . import cdc_scan
-                handle = cdc_scan.transform_async(payload, itemsize)
+                handle = cdc_scan.transform_async(payload, itemsize,
+                                                  self._device)
 
                 def resolve(handle=handle, ticket=ticket,
                             codec_name=codec_name):
@@ -359,7 +363,8 @@ class SaveSession:
                     return t, self._chunker_obj.chunk(t, candidates=cands)
             else:
                 from . import cdc_scan
-                handle = cdc_scan.transform_async(payload, itemsize)
+                handle = cdc_scan.transform_async(payload, itemsize,
+                                                  self._device)
 
                 def resolve(handle=handle, codec_name=codec_name):
                     enc = codec_mod.encode_preconditioned(handle.result(),
@@ -558,7 +563,7 @@ def write_shards(*, items, alive_hint: int, coordinator, chunks: ChunkStore,
                  max_retries: int, save_timeout_s: float,
                  crash: CrashInjector, overlapped: bool = False,
                  device_precondition: bool = False,
-                 device_entropy: bool = True) \
+                 device_entropy: bool = True, device=None) \
         -> WriteOutcome:
     """Run the retrying 2PC phase 1: plan an attempt over surviving ranks,
     start one writer thread per rank, wait for the all-PREPARED barrier,
@@ -577,7 +582,7 @@ def write_shards(*, items, alive_hint: int, coordinator, chunks: ChunkStore,
             rank_chunks: Counter = Counter()
             session = SaveSession(chunks, crash=crash,
                                   on_chunk=lambda: coordinator.heartbeat(rank),
-                                  chunker=chunker)
+                                  chunker=chunker, device=device)
             deferred: list = []             # (item index, ticket, record)
             for i, name, rng, arr, fname, is_replica in work:
                 codec_name = leaf_codec(name)

@@ -24,12 +24,18 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 _P, _I64, _U32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
+_INT, _F32 = ctypes.c_int, ctypes.c_float
 # kernel → (C entry point, argument types); every entry point returns
 # cudaGetLastError() as an int, and takes PyTorch's stream last
 SIGNATURES = {
     "gear_scan": ("rt_gear_scan", (_P, _P, _P, _I64, _U32, _U32, _P)),
     "byteplane_fwd": ("rt_byteplane_fwd", (_P, _P, _I64, _I64, _P)),
     "rle_emit": ("rt_rle_emit", (_P, _P, _P, _I64, _I64, _P)),
+    "rmsnorm": ("rt_rmsnorm", (_P, _P, _P, _I64, _I64, _F32, _INT, _INT,
+                               _P)),
+    "flash_attention": ("rt_flash_attention",
+                        (_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT,
+                         _F32, _F32, _INT, _INT, _INT, _P)),
 }
 KERNELS = tuple(SIGNATURES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,4 +1,4 @@
-"""Device-side plane entropy stage (``byteplane-rle``).
+"""Device-side plane entropy stage (``byteplane-rle``, ``byteplane-rans``).
 
 The numpy oracle and the framing live in ``core.codec``
 (``entropy_encode_blocks`` + ``assemble_block_stream``); every path here
@@ -18,8 +18,12 @@ the encoded stream plus per-block lengths.
                       runs outside any Pallas kernel there too) as PyTorch
                       ops on the tensor's device, with either emitter.
 
-``byteplane-rans`` needs its own kernel for the lane-interleaved rANS scan
-and is not ported yet: asking for it here raises.
+``byteplane-rans`` adds ``_rans_stage`` (the JAX package's, which is jnp
+outside any Pallas kernel there too): histogram, 12-bit frequency
+quantization, the 16-lane interleaved rANS scan as a Python loop over the
+256 symbol steps vectorized over blocks and lanes, and serialization — as
+PyTorch ops on the tensor's device. Lane states are int64 masked to 32
+bits (PyTorch has no wrapping uint32 add).
 """
 from __future__ import annotations
 
@@ -27,11 +31,17 @@ import threading
 
 import numpy as np
 
-from ...core.codec import ENTROPY_BLOCK
+from ...core.codec import (ENTROPY_BLOCK, RANS_L, RANS_LANES,
+                           RANS_PROB_BITS, _LANE_MAX, _RANS_STEPS)
 from .. import build
 
 B = ENTROPY_BLOCK
-PORTED_CODECS = ("byteplane-rle",)
+L = RANS_LANES
+S = _RANS_STEPS
+_RANS_W = 1 + 3 * 256 + 4 * L + 2 * L + L * _LANE_MAX
+RANS_BATCH = 4096       # blocks per rANS pass: bounds the (nb, 16, 512)
+                        # temporaries at a few hundred MB
+PORTED_CODECS = ("byteplane-rle", "byteplane-rans")
 
 launches = 0            # kernel launches since the last reset
 _count_lock = threading.Lock()
@@ -94,6 +104,89 @@ def rle_emission(blkmat, n: int):
 # glue: pair compaction, block choice, framed stream
 # ---------------------------------------------------------------------------
 
+def _rans_stage(blkmat, valid):
+    """Histogram → quantize → lane-interleaved rANS scan → serialize over
+    the [nb, B] block matrix (== the JAX package's ``_rans_stage``, and the
+    oracle's ``_rans_quantize``/``_rans_encode_blocks``/``_rans_serialize``).
+    Returns (rans_data u8 [nb, _RANS_W], rans_lens i64 [nb], eligible)."""
+    import torch
+    nb = blkmat.shape[0]
+    dev = blkmat.device
+    rows = torch.arange(nb, device=dev)
+    sym = blkmat.long()
+    blens = valid.sum(dim=1)
+    counts = torch.zeros((nb, 256), dtype=torch.int64, device=dev)
+    counts.scatter_add_(1, sym, valid.long())
+    T = 1 << RANS_PROB_BITS
+    nz = counts > 0
+    f = torch.where(nz, torch.clamp(
+        (counts * T) // torch.clamp(blens[:, None], min=1), min=1), 0)
+    imax = torch.argmax(counts, dim=1)            # first max, as jnp.argmax
+    f[rows, imax] += T - f.sum(dim=1)
+    eligible = f[rows, imax] >= 1
+    nsyms = nz.sum(dim=1)
+    cum = torch.cumsum(f, dim=1) - f
+    # encode: steps S-1 … 0, carry = 16 lane states (int64, < 2^32)
+    fs = torch.gather(f, 1, sym).view(nb, S, L)
+    cs = torch.gather(cum, 1, sym).view(nb, S, L)
+    vs = valid.view(nb, S, L)
+    x = torch.full((nb, L), RANS_L, dtype=torch.int64, device=dev)
+    b0 = torch.empty((S, nb, L), dtype=torch.uint8, device=dev)
+    b1 = torch.empty_like(b0)
+    e0 = torch.empty((S, nb, L), dtype=torch.bool, device=dev)
+    e1 = torch.empty_like(e0)
+    for t in range(S - 1, -1, -1):
+        v = vs[:, t]
+        fv = torch.where(v, fs[:, t], 1)
+        cv = torch.where(v, cs[:, t], 0)
+        x_max = fv << (8 + 23 - RANS_PROB_BITS)
+        e0[t] = v & (x >= x_max)
+        b0[t] = (x & 0xFF).to(torch.uint8)
+        x = torch.where(e0[t], x >> 8, x)
+        e1[t] = v & (x >= x_max)
+        b1[t] = (x & 0xFF).to(torch.uint8)
+        x = torch.where(e1[t], x >> 8, x)
+        xe = (((x // fv) << RANS_PROB_BITS) + x % fv + cv) & 0xFFFFFFFF
+        x = torch.where(v, xe, x)
+    # decode order: steps ascending, the second byte before the first
+    db = torch.stack([b1, b0], dim=-1).permute(1, 2, 0, 3) \
+        .reshape(nb, L, 2 * S)
+    dv = torch.stack([e1, e0], dim=-1).permute(1, 2, 0, 3) \
+        .reshape(nb, L, 2 * S)
+    lane_len = dv.sum(dim=-1)                                  # [nb, L]
+    pos = torch.cumsum(dv, dim=-1, dtype=torch.int32) - 1
+    lane_buf = torch.zeros((nb, L, _LANE_MAX + 1), dtype=torch.uint8,
+                           device=dev)
+    lane_buf.scatter_(2, torch.where(dv, pos, _LANE_MAX).long(), db)
+    lane_buf = lane_buf[:, :, :_LANE_MAX]
+    # serialize (== oracle _rans_serialize); column _RANS_W is the sink
+    W = _RANS_W
+    data = torch.zeros((nb, W + 1), dtype=torch.uint8, device=dev)
+    data[:, 0] = ((nsyms - 1) & 0xFF).to(torch.uint8)
+    rank = torch.cumsum(nz, dim=1) - 1
+    scol = torch.arange(256, device=dev).expand(nb, 256)
+    fo = (1 + nsyms)[:, None]
+    for col, val in ((1 + rank, scol), (fo + 2 * rank, f & 0xFF),
+                     (fo + 2 * rank + 1, f >> 8)):
+        data.scatter_(1, torch.where(nz, col, W), val.to(torch.uint8))
+    o_states = 1 + 3 * nsyms                                   # [nb]
+    lanes = torch.arange(L, device=dev)
+    for byte in range(4):
+        data.scatter_(1, o_states[:, None] + 4 * lanes + byte,
+                      ((x >> (8 * byte)) & 0xFF).to(torch.uint8))
+    o_lens = o_states + 4 * L
+    cols = o_lens[:, None] + 2 * lanes
+    data.scatter_(1, cols, (lane_len & 0xFF).to(torch.uint8))
+    data.scatter_(1, cols + 1, (lane_len >> 8).to(torch.uint8))
+    o_bytes = o_lens + 2 * L
+    lane_off = torch.cumsum(lane_len, dim=1) - lane_len
+    kcol = torch.arange(_LANE_MAX, device=dev)
+    dst = o_bytes[:, None, None] + lane_off[:, :, None] + kcol
+    dst = torch.where(kcol < lane_len[:, :, None], dst, W)
+    data.scatter_(1, dst.reshape(nb, -1), lane_buf.reshape(nb, -1))
+    return data[:, :W], o_bytes + lane_len.sum(dim=1), eligible
+
+
 def encode(t, codec: str, emitter=rle_emission):
     """Encode the transformed uint8 stream `t` (1-D tensor) on its device.
     Returns (flags u8 [nb], dlens i32 [nb], stream u8 [n + 3·nb],
@@ -136,6 +229,17 @@ def encode(t, codec: str, emitter=rle_emission):
     flags = use_rle.to(torch.uint8)
     dlens = torch.where(use_rle, rle_lens, blens)
     body = torch.where(use_rle[:, None], rle_buf[:, :B], blkmat)
+    if codec == "byteplane-rans":
+        for lo in range(0, nb, RANS_BATCH):
+            hi = min(lo + RANS_BATCH, nb)
+            data, rans_lens, eligible = _rans_stage(blkmat[lo:hi],
+                                                    valid[lo:hi])
+            use = eligible & (rans_lens < dlens[lo:hi])
+            flags[lo:hi] = torch.where(use, 2, flags[lo:hi])
+            dlens[lo:hi] = torch.where(use, rans_lens.to(torch.int32),
+                                       dlens[lo:hi])
+            body[lo:hi] = torch.where(use[:, None], data[:, :B],
+                                      body[lo:hi])
     keep = colm < dlens[:, None]
     # framed-stream compaction (== oracle assemble_block_stream)
     block_lens = (3 + dlens).to(torch.int64)

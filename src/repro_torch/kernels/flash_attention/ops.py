@@ -1,0 +1,155 @@
+"""Flash-attention forward (K8) on the model's (B, S, H, D) layout.
+
+  flash_attention        the wrapper of the hand-written CUDA kernel
+                         ``csrc/flash_attention.cu`` (replaces the Pallas
+                         ``flash_attention_bhsd``,
+                         ``src/repro/kernels/flash_attention/kernel.py``).
+                         A CUDA tensor launches the kernel (or raises); a
+                         CPU tensor takes the plain version;
+  flash_attention_plain  the Pallas kernel's math in dense form: q scaled
+                         in f32, scores in f32, the ``NEG_INF = -1e30``
+                         mask, p rounded to V's type before it meets V,
+                         ``l`` floored at 1e-30. The CPU tests hold it
+                         against the Pallas kernel in interpret mode, and
+                         ``chip_smoke.py`` holds the kernel against it;
+  attention_reference    the naive softmax oracle of
+                         ``kernels/flash_attention/ref.py`` on (B, H, S, D).
+
+Masks: ``causal`` drops keys after the query; ``window`` W > 0 drops keys
+W or more before it and, without causality, W or more after it. GQA
+indexes kv head ``h // (H // K)``; K/V are never repeated.
+
+The kernel is bound by operations: 4·D flops per unmasked (query, key)
+pair.
+"""
+from __future__ import annotations
+
+import math
+import threading
+
+from .. import build
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+launches = 0            # kernel launches since the last reset
+_count_lock = threading.Lock()
+
+
+def _mask(sq: int, sk: int, causal: bool, window: int, device):
+    import torch
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= qpos - kpos < window
+        if not causal:
+            mask &= kpos - qpos < window
+    return mask
+
+
+def _softcap(s, cap: float):
+    import torch
+    if cap and cap > 0.0:
+        return torch.tanh(s / cap) * cap
+    return s
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          softcap: float = 0.0, scale=None):
+    """q: (B, Sq, H, D); k, v: (B, Sk, K, D) → (B, Sq, H, D) in q's
+    dtype, dense per (b, h)."""
+    import torch
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qf = q.float().view(B, Sq, K, G, D).permute(0, 2, 3, 1, 4) * scale
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]         # (B, K, 1, Sk, D)
+    s = _softcap(qf @ kf.transpose(-1, -2), softcap)        # (B, K, G, Sq, Sk)
+    s = torch.where(_mask(Sq, Sk, causal, window, q.device), s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    o = (p.to(v.dtype).float() @ vf) / torch.clamp(l, min=1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, scale=None):
+    """q: (B, H, Sq, D); k, v: (B, K, Sk, D) → (B, H, Sq, D): plain
+    softmax attention with K/V repeated over the group."""
+    import torch
+    B, H, Sq, D = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    kh = k.repeat_interleave(G, dim=1).float()
+    vh = v.repeat_interleave(G, dim=1).float()
+    s = _softcap((q.float() * scale) @ kh.transpose(-1, -2), softcap)
+    s = torch.where(_mask(Sq, Sk, causal, window, q.device), s, NEG_INF)
+    return (torch.softmax(s, dim=-1) @ vh).to(q.dtype)
+
+
+def _aligned(t):
+    """Contiguous, at a 16-byte aligned address (the kernel reads rows with
+    16-byte loads; a view may start anywhere)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, scale=None):
+    """q: (B, Sq, H, D); k, v: (B, Sk, K, D) → (B, Sq, H, D). CUDA tensors
+    → the K8 kernel on the current stream; CPU tensors →
+    ``flash_attention_plain``."""
+    import torch
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale)
+    B, Sq, H, D = q.shape
+    Bk, Sk, K, Dk = k.shape
+    if tuple(v.shape) != tuple(k.shape) or Bk != B or Dk != D or H % K:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not fit (B, S, H, D) "
+                         "attention with H % K == 0")
+    if not (q.dtype == k.dtype == v.dtype) or \
+            q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"attention kernel takes bf16/f32 q, k, v of one "
+                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"attention kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {D}")
+    if not (k.is_cuda and v.is_cuda):
+        raise ValueError("q, k and v must lie on one CUDA device")
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    out = torch.empty_like(q)
+    if out.numel() == 0 or Sk == 0:
+        return out.zero_()
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    build.launch("flash_attention", q, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, K, D,
+                 float(scale), float(softcap or 0.0), int(bool(causal)),
+                 int(window or 0), int(q.dtype == torch.bfloat16))
+    global launches
+    with _count_lock:
+        launches += 1
+    return out
+
+
+def unmasked_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that the mask keeps for one (b, h): the work the
+    kernel's flop count is taken over."""
+    total = 0
+    for i in range(sq):
+        lo, hi = 0, sk                       # keys [lo, hi) kept
+        if causal:
+            hi = min(hi, i + 1)
+        if window > 0:
+            lo = max(lo, i - window + 1)
+            if not causal:
+                hi = min(hi, i + window)
+        total += max(hi - lo, 0)
+    return total

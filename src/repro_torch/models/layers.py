@@ -1,0 +1,154 @@
+"""Shared layers of the dense model families, as plain functions over the
+JAX package's parameter dicts (``src/repro/models/layers.py``): norms, rope,
+MLPs and attention.
+
+Two of them run the port's hand-written kernels on a CUDA tensor:
+``rmsnorm`` is K7 (``kernels.rmsnorm``) and the sequence attentions
+``attention_full``/``attention_local`` are K8 (``kernels.flash_attention``),
+which computes what the JAX package's Pallas kernel computes for them (q
+scaled in f32; the XLA path scales q in its own dtype). Decode attention
+(one query per step) is not a Pallas kernel in the JAX package and stays
+PyTorch ops here. Rounding follows the JAX functions: f32 math where they
+upcast, one rounding to the activation dtype where they cast back, and f32
+outputs where they ask for ``preferred_element_type=float32``.
+"""
+from __future__ import annotations
+
+import math
+
+from ..kernels.flash_attention import flash_attention
+from ..kernels.rmsnorm import rmsnorm_fused
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, scale, *, eps=1e-6):
+    """The gemma (1 + scale) RMSNorm: the K7 kernel on a CUDA tensor."""
+    return rmsnorm_fused(x, scale, eps=eps)
+
+
+def layernorm(x, scale, bias, *, eps=1e-5):
+    import torch
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dt)
+
+
+def apply_norm(params, x, cfg):
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, params["scale"])
+    return layernorm(x, params["scale"], params.get("bias"))
+
+
+# ---------------------------------------------------------------------------
+# rope
+# ---------------------------------------------------------------------------
+
+def rope_table(positions, head_dim, theta, rope_pct=1.0):
+    """positions: (...,) ints → (cos, sin, rot_dim), cos/sin (..., rot/2)
+    f32."""
+    import torch
+    rot_dim = int(head_dim * rope_pct) // 2 * 2
+    freqs = 1.0 / (theta ** (torch.arange(0, rot_dim, 2, dtype=torch.float32,
+                                          device=positions.device)
+                             / rot_dim))
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang), rot_dim
+
+
+def apply_rope(x, cos, sin, rot_dim):
+    """x: (..., S, H, D); cos/sin: (S, rot/2) broadcast over batch and heads.
+    Rotate-half (not interleaved), in f32: ``[y1, y2, pass]``."""
+    import torch
+    if rot_dim == 0:
+        return x
+    dt = x.dtype
+    xr, xp = x[..., :rot_dim], x[..., rot_dim:]
+    x1, x2 = xr.float().chunk(2, dim=-1)
+    c = cos[..., :, None, :]
+    s = sin[..., :, None, :]
+    y1 = x1 * c - x2 * s
+    y2 = x2 * c + x1 * s
+    return torch.cat([y1.to(dt), y2.to(dt), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# mlp
+# ---------------------------------------------------------------------------
+
+def _act(name):
+    import torch.nn.functional as F
+    if name == "silu":
+        return F.silu
+    return lambda x: F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(params, x, cfg):
+    act = _act(cfg.act)
+    if cfg.gated_mlp:
+        h = act(x @ params["wg"]) * (x @ params["wu"])
+    else:
+        h = x @ params["wi"]
+        if "bi" in params:
+            h = h + params["bi"]
+        h = act(h)
+    y = h @ params["wd"]
+    if "bd" in params:
+        y = y + params["bd"]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _softcap(s, cap):
+    import torch
+    if cap and cap > 0.0:
+        return torch.tanh(s / cap) * cap
+    return s
+
+
+def attention_full(q, k, v, *, causal, softcap=0.0, scale=None):
+    """q: (B, S, H, D); k, v: (B, S, K, D), H % K == 0 → (B, S, H, D): the
+    K8 kernel with no window."""
+    return flash_attention(q, k, v, causal=causal, window=0,
+                           softcap=softcap, scale=scale)
+
+
+def attention_local(q, k, v, *, window, softcap=0.0, scale=None,
+                    causal=True):
+    """Sliding-window attention over aligned q/k positions: the K8 kernel
+    with the window (both sides when not causal)."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           softcap=softcap, scale=scale)
+
+
+def attention_decode(q, k, v, *, kv_len, softcap=0.0, scale=None):
+    """One query per sequence over a (possibly ring-buffered) KV cache.
+    q: (B, 1, H, D); k, v: (B, Smax, K, D); slots < min(kv_len, Smax) are
+    valid. q is scaled in its own dtype; scores and the PV product
+    accumulate in f32 (``preferred_element_type``), p is rounded to V's
+    dtype first."""
+    import torch
+    B, _, H, D = q.shape
+    Smax, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale or 1.0 / math.sqrt(D)
+    qf = (q.reshape(B, K, G, D) * scale).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k.float())
+    s = _softcap(s, softcap)
+    valid = torch.arange(Smax, device=q.device) < min(int(kv_len), Smax)
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
+    return o.reshape(B, 1, H, D).to(q.dtype)

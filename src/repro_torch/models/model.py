@@ -1,0 +1,321 @@
+"""The model zoo's dense attention families (``src/repro/models/model.py``)
+as plain functions over the JAX package's nested parameter dict.
+
+    model = Model(cfg)
+    params              = model.init(seed=0, device=None)
+    last_logits, cache  = model.prefill(params, tokens, cache_len=...)
+    logits, cache       = model.decode_step(params, cache, tokens)
+    cache               = model.init_cache(batch, cache_len)
+
+Parameters keep the JAX layout — ``stage_{i}`` subtrees whose leaves are
+stacked along a leading repeat axis — and the KV cache keeps the JAX cache
+tree (``pos`` plus ``stage_{i}/b{j}/{k,v}`` stacked the same way), so a
+serving checkpoint's leaf names, shapes and dtypes are the JAX package's
+one for one and either package resumes the other's. ``lax.scan`` over a
+stage's repeats becomes a Python loop over the leading axis.
+
+Deviations, each named where it happens: ``decode_step`` writes the new
+key/value into the cache tensors in place and returns the same tree (the
+JAX version returns new arrays); ``init`` draws from a ``torch.Generator``
+(other values than ``jax.random`` from the same seed — move weights across
+with ``convert.params_from_jax``). MoE, SSM and RG-LRU blocks, ``loss`` and
+``encode`` raise ``NotImplementedError``: they come with later slices.
+"""
+from __future__ import annotations
+
+import math
+
+from ..configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig, build_stages
+from ..devices import resolve_device
+from .layers import (_softcap, apply_norm, apply_rope, attention_decode,
+                     attention_full, attention_local, mlp_apply, rmsnorm,
+                     rope_table)
+
+ATTN = (ATTN_GLOBAL, ATTN_LOCAL)
+
+
+def _later(what: str):
+    raise NotImplementedError(
+        f"{what} is not ported yet: the port's Model covers the dense "
+        "attention families (the serving slice); MoE, SSM and RG-LRU blocks "
+        "and the training loss come with the trainer and model-family "
+        "slices (ROADMAP.md)")
+
+
+def _index(tree, r: int):
+    """Layer `r` of a stage subtree stacked along its leading axis
+    (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.stages = build_stages(cfg)
+        for stage in self.stages:
+            if stage.moe:
+                _later("a MoE stage")
+            for kind in stage.kinds:
+                if kind not in ATTN:
+                    _later(f"block kind {kind!r}")
+        if cfg.family == "encoder":
+            _later("the encoder family")
+
+    # ------------------------------------------------------------------
+    # init
+    # ------------------------------------------------------------------
+    def init(self, generator=None, *, seed: int = 0, device=None):
+        """The parameter tree of the JAX ``Model.init`` (names, shapes,
+        dtypes and init scales) on `device` (``None`` → CUDA)."""
+        from ..state import init_params
+        return init_params(self.cfg, device, generator, seed=seed)
+
+    def abstract_params(self):
+        """The parameter tree as meta tensors (shapes and dtypes only), for
+        a restore target."""
+        import torch
+
+        from ..state import _map, param_specs
+        dt = getattr(torch, self.cfg.dtype)
+        return _map(lambda spec: torch.empty(spec[0], dtype=dt,
+                                             device="meta"),
+                    param_specs(self.cfg))
+
+    # ------------------------------------------------------------------
+    # blocks
+    # ------------------------------------------------------------------
+    def _ropes(self, positions):
+        """Rope tables per attention kind, once per forward."""
+        cfg = self.cfg
+        out = {}
+        if cfg.positional != "rope":
+            return out
+        kinds = set(cfg.layer_kinds)
+        if ATTN_GLOBAL in kinds:
+            out[ATTN_GLOBAL] = rope_table(positions, cfg.head_dim,
+                                          cfg.rope_theta, cfg.rope_pct)
+        if ATTN_LOCAL in kinds:
+            theta = cfg.rope_theta_local or cfg.rope_theta
+            out[ATTN_LOCAL] = rope_table(positions, cfg.head_dim, theta,
+                                         cfg.rope_pct)
+        return out
+
+    def _qkv(self, p, x, kind, ropes):
+        cfg = self.cfg
+        B, S, d = x.shape
+
+        def proj(w):            # einsum("bsd,dhk->bshk")
+            return (x @ w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
+
+        q, k, v = proj(p["q"]), proj(p["k"]), proj(p["v"])
+        if cfg.use_bias and "q_b" in p:
+            q, k, v = q + p["q_b"], k + p["k_b"], v + p["v_b"]
+        if cfg.qk_norm:
+            q = rmsnorm(q, p["q_norm"]["scale"])
+            k = rmsnorm(k, p["k_norm"]["scale"])
+        rope = ropes.get(kind)
+        if rope is not None:
+            cos, sin, rot = rope
+            q = apply_rope(q, cos, sin, rot)
+            k = apply_rope(k, cos, sin, rot)
+        return q, k, v
+
+    def _out(self, p, o):
+        """einsum("bshk,hkd->bsd") plus the output bias."""
+        B, S, H, hd = o.shape
+        out = o.reshape(B, S, H * hd) @ p["o"].reshape(H * hd, -1)
+        if self.cfg.use_bias and "o_b" in p:
+            out = out + p["o_b"]
+        return out
+
+    def _attn_sequence(self, p, x, kind, ropes):
+        """Full-sequence attention (prefill): (out, (k, v))."""
+        cfg = self.cfg
+        q, k, v = self._qkv(p, x, kind, ropes)
+        common = dict(softcap=cfg.attn_softcap, scale=cfg.attn_scale or None)
+        if kind == ATTN_LOCAL:
+            o = attention_local(q, k, v, window=cfg.window, causal=cfg.causal,
+                                **common)
+        else:
+            o = attention_full(q, k, v, causal=cfg.causal, **common)
+        return self._out(p, o), (k, v)
+
+    def _mlp_part(self, p, x):
+        cfg = self.cfg
+        y = mlp_apply(p["mlp"], apply_norm(p["norm_mlp"], x, cfg), cfg)
+        if cfg.post_norm:
+            y = apply_norm(p["norm_post_mlp"], y, cfg)
+        return y
+
+    def _block_sequence(self, p, x, kind, ropes, cache_len):
+        """One block over a full sequence: (x, this block's cache)."""
+        cfg = self.cfg
+        h = apply_norm(p["norm_in"], x, cfg)
+        o, (k, v) = self._attn_sequence(p, h, kind, ropes)
+        new_cache = self._build_attn_cache(kind, k, v, cache_len)
+        if cfg.post_norm:
+            o = apply_norm(p["norm_post"], o, cfg)
+        x = x + o
+        return x + self._mlp_part(p, x), new_cache
+
+    def _build_attn_cache(self, kind, k, v, cache_len):
+        """Prefill K/V → a decode cache of capacity cache_len: a ring
+        buffer of W = min(window, cache_len) slots for local attention,
+        positions S-n..S-1 at slots (S-n..S-1) % W."""
+        import torch
+        B, S, K, hd = k.shape
+        if kind == ATTN_LOCAL:
+            W = min(self.cfg.window, cache_len)
+            n = min(S, W)
+            slots = torch.arange(S - n, S, device=k.device) % W
+            out = {}
+            for name, t in (("k", k), ("v", v)):
+                c = torch.zeros((B, W, K, hd), dtype=t.dtype, device=t.device)
+                c[:, slots] = t[:, S - n:]
+                out[name] = c
+            return out
+        out = {}
+        for name, t in (("k", k), ("v", v)):
+            c = torch.zeros((B, cache_len, K, hd), dtype=t.dtype,
+                            device=t.device)
+            n = min(S, cache_len)
+            c[:, :n] = t[:, :n]
+            out[name] = c
+        return out
+
+    def _block_decode(self, p, x, kind, cache, pos, ropes):
+        """One block for a single token; writes the new key/value into
+        `cache` (this layer's views) in place."""
+        cfg = self.cfg
+        h = apply_norm(p["norm_in"], x, cfg)
+        q, k, v = self._qkv(p, h, kind, ropes)
+        cap = cache["k"].shape[1]
+        if kind == ATTN_LOCAL:
+            slot, kv_len = pos % cap, min(pos + 1, cap)
+        else:
+            # dynamic_update_slice clamps a start past the end
+            slot, kv_len = min(pos, cap - 1), pos + 1
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        o = attention_decode(q, cache["k"], cache["v"], kv_len=kv_len,
+                             softcap=cfg.attn_softcap,
+                             scale=cfg.attn_scale or None)
+        o = self._out(p, o)
+        if cfg.post_norm:
+            o = apply_norm(p["norm_post"], o, cfg)
+        x = x + o
+        return x + self._mlp_part(p, x)
+
+    # ------------------------------------------------------------------
+    # stages (the JAX scan over stacked layers → a loop over the axis)
+    # ------------------------------------------------------------------
+    def _run_stages_sequence(self, params, x, positions, cache_len):
+        import torch
+        ropes = self._ropes(positions)
+        caches = {}
+        for si, stage in enumerate(self.stages):
+            sp = params[f"stage_{si}"]
+            per_layer = []
+            for r in range(stage.repeat):
+                layer_p = _index(sp, r)
+                new_c = {}
+                for j, kind in enumerate(stage.kinds):
+                    x, new_c[f"b{j}"] = self._block_sequence(
+                        layer_p[f"b{j}"], x, kind, ropes, cache_len)
+                per_layer.append(new_c)
+            caches[f"stage_{si}"] = {
+                f"b{j}": {n: torch.stack([c[f"b{j}"][n] for c in per_layer])
+                          for n in ("k", "v")}
+                for j in range(len(stage.kinds))}
+        return x, caches
+
+    def _run_stages_decode(self, params, cache, x, pos: int):
+        import torch
+        ropes = self._ropes(torch.tensor([pos], device=x.device))
+        for si, stage in enumerate(self.stages):
+            sp, sc = params[f"stage_{si}"], cache[f"stage_{si}"]
+            for r in range(stage.repeat):
+                layer_p, layer_c = _index(sp, r), _index(sc, r)
+                for j, kind in enumerate(stage.kinds):
+                    x = self._block_decode(layer_p[f"b{j}"], x, kind,
+                                           layer_c[f"b{j}"], pos, ropes)
+        return x
+
+    # ------------------------------------------------------------------
+    # embedding / head
+    # ------------------------------------------------------------------
+    def _embed(self, params, tokens):
+        import torch
+        x = params["embed"][tokens.long()]
+        if self.cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype,
+                                 device=x.device)
+        return x
+
+    def _head_weights(self, params):
+        if self.cfg.tie_embeddings:
+            return params["embed"].T
+        return params["lm_head"]
+
+    def _logits_last(self, params, x_last):
+        """x_last: (B, d) → (B, V) f32 logits: the product of the bf16 (or
+        f32) inputs accumulated and returned in f32, as
+        ``preferred_element_type=float32`` asks (a bf16 matmul would round
+        its output to bf16)."""
+        w = self._head_weights(params)
+        return _softcap(x_last.float() @ w.float(), self.cfg.final_softcap)
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+    def prefill(self, params, tokens, *, cache_len=0):
+        """tokens: (B, S) ints → (last_logits (B, V) f32, cache)."""
+        import torch
+        B, S = tokens.shape
+        cache_len = cache_len or S
+        x = self._embed(params, tokens)
+        positions = torch.arange(S, device=x.device)
+        x, caches = self._run_stages_sequence(params, x, positions, cache_len)
+        x = apply_norm(params["final_norm"], x, self.cfg)
+        logits = self._logits_last(params, x[:, -1])
+        caches["pos"] = torch.tensor(S, dtype=torch.int32, device=x.device)
+        return logits, caches
+
+    def decode_step(self, params, cache, tokens):
+        """tokens: (B,) ints; cache from prefill/init_cache (updated in
+        place: its k/v tensors take the new entries, ``pos`` is replaced)
+        → (logits (B, V) f32, cache)."""
+        pos = int(cache["pos"])
+        x = self._embed(params, tokens[:, None])
+        x = self._run_stages_decode(params, cache, x, pos)
+        x = apply_norm(params["final_norm"], x, self.cfg)
+        logits = self._logits_last(params, x[:, 0])
+        cache["pos"] = cache["pos"] + 1
+        return logits, cache
+
+    def init_cache(self, batch, cache_len, *, device=None):
+        """Zero cache of the prefill's tree (``device="meta"`` gives a
+        restore target without allocating)."""
+        import torch
+        cfg = self.cfg
+        dev = device if device == "meta" else resolve_device(device)
+        dt = getattr(torch, cfg.dtype)
+        caches = {"pos": torch.tensor(0, dtype=torch.int32, device=dev)}
+        for si, stage in enumerate(self.stages):
+            sc = {}
+            for j, kind in enumerate(stage.kinds):
+                n = min(cfg.window, cache_len) if kind == ATTN_LOCAL \
+                    else cache_len
+                shp = (stage.repeat, batch, n, cfg.n_kv_heads, cfg.head_dim)
+                sc[f"b{j}"] = {"k": torch.zeros(shp, dtype=dt, device=dev),
+                               "v": torch.zeros(shp, dtype=dt, device=dev)}
+            caches[f"stage_{si}"] = sc
+        return caches
+
+    def loss(self, params, batch):
+        _later("Model.loss (training)")
+
+    def encode(self, params, feats):
+        _later("Model.encode (the encoder family)")

@@ -98,22 +98,24 @@ def _map(fn, tree: dict) -> dict:
             for k, v in tree.items()}
 
 
-def train_state(cfg: ModelConfig, device=None, generator=None, *,
-                seed: int = 0, step: int = 0) -> dict:
-    """The full training state of `cfg` on `device` (``None`` → CUDA),
-    from `generator` (a ``torch.Generator`` on that device; seeded with
-    `seed` when None)."""
+def _generator(dev, generator, seed: int):
+    import torch
+    if generator is not None:
+        return generator
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g
+
+
+def init_params(cfg: ModelConfig, device=None, generator=None, *,
+                seed: int = 0) -> dict:
+    """``Model.init``'s parameter tree for `cfg` on `device` (``None`` →
+    CUDA), drawn from `generator` (seeded with `seed` when None): normal ×
+    the JAX init's scale in f32, then cast to ``cfg.dtype``."""
     import torch
     dev = resolve_device(device)
-    g = generator
-    if g is None:
-        g = torch.Generator(device=dev)
-        g.manual_seed(seed)
+    g = _generator(dev, generator, seed)
     pdt = getattr(torch, cfg.dtype)
-
-    def randn(shape):
-        return torch.randn(shape, generator=g, device=dev,
-                           dtype=torch.float32)
 
     def init(spec):
         shape, how = spec
@@ -121,10 +123,27 @@ def train_state(cfg: ModelConfig, device=None, generator=None, *,
             return torch.zeros(shape, dtype=pdt, device=dev)
         if how == "ones":
             return torch.ones(shape, dtype=pdt, device=dev)
-        return randn(shape).mul_(how).to(pdt)
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.float32).mul_(how).to(pdt)
+
+    return _map(init, param_specs(cfg))
+
+
+def train_state(cfg: ModelConfig, device=None, generator=None, *,
+                seed: int = 0, step: int = 0) -> dict:
+    """The full training state of `cfg` on `device` (``None`` → CUDA),
+    from `generator` (a ``torch.Generator`` on that device; seeded with
+    `seed` when None)."""
+    import torch
+    dev = resolve_device(device)
+    g = _generator(dev, generator, seed)
+
+    def randn(shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.float32)
 
     specs = param_specs(cfg)
-    params = _map(init, specs)
+    params = init_params(cfg, dev, g)
     m = _map(lambda s: randn(s[0]).mul_(M_SCALE), specs)
     v = _map(lambda s: randn(s[0]).mul_(V_SCALE).square_(), specs)
     return {

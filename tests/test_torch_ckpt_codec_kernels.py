@@ -160,8 +160,18 @@ def test_rle_encode_stream_matches_pallas_interpret(kind, size):
 
 
 def test_rans_device_stage_is_not_silently_substituted():
+    """Asking for byteplane-rans runs the rANS stage (rANS-framed blocks,
+    byte-identical to the JAX jnp encoder), never RLE in its place; a codec
+    without a device entropy stage raises."""
+    u8 = np.random.default_rng(2).geometric(0.3, 3 * B + 5).astype(np.uint8)
+    flags, _, _, _ = tent.encode(_t(u8), "byteplane-rans")
+    assert flags[:3].tolist() == [2, 2, 2]
+    ref_s, ref_bl = jent.encode_stream(u8, "byteplane-rans", backend="jnp")
+    got_s, got_bl = tent.encode_stream(u8, "byteplane-rans", device="cpu")
+    np.testing.assert_array_equal(got_s, ref_s)
+    np.testing.assert_array_equal(got_bl, ref_bl)
     with pytest.raises(NotImplementedError):
-        tent.encode(_t(np.zeros(10, np.uint8)), "byteplane-rans")
+        tent.encode(_t(u8), "byteplane-zstd")
 
 
 # ---------------------------------------------------------------------------
@@ -223,12 +233,17 @@ def test_concurrent_scans_share_the_staging_arena():
 
 
 def test_unported_routes_raise():
+    """Every JAX route exists in the port now; what still raises is a
+    device route asked for on a machine without the device."""
     ms, ml = _masks()
     sc = tscan.GearScanner(ms, ml, backend="pallas", device="cpu")
-    with pytest.raises(NotImplementedError):
-        sc.scan_transform_async(b"\x00" * 100, 2)
-    with pytest.raises(NotImplementedError):
-        tscan.transform_async(b"\x00" * 100, 2)
+    (s, l), t = sc.scan_transform_async(b"\x00" * 100, 2).result()
+    np.testing.assert_array_equal(t, np.zeros(100, np.uint8))
+    np.testing.assert_array_equal(
+        tscan.transform_async(b"\x00" * 100, 2).result(), t)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tscan.transform_async(b"\x01" * tscan.MIN_ACCEL_BYTES, 2)
 
 
 def test_backend_resolution_keeps_jax_vocabulary():

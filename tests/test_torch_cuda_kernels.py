@@ -17,6 +17,8 @@ from repro_torch.core import codec
 from repro_torch.core.cdc import GearChunker
 from repro_torch.kernels.ckpt_codec import byteplane as bp
 from repro_torch.kernels.ckpt_codec import entropy as ent
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.rmsnorm import ops as rn
 
 pytestmark = pytest.mark.cuda
 B = ent.B
@@ -101,3 +103,65 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     bp.forward_planes(u8, 2)
     bp.forward_planes(u8.cpu(), 2)          # plain version: not counted
     assert bp.launches == before + 1
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_scan_transform_routes_match_oracle(cuda, itemsize):
+    """K2 then K1 without the entropy stage (device_entropy=False and the
+    byteplane codec under CDC), and K2 alone (fixed chunking)."""
+    ms, ml = _masks(65536)
+    x = (np.random.default_rng(itemsize).standard_normal(1 << 20)
+         * 0.02).astype(np.float32)
+    data = codec.contig_u8(x)[:(3 << 20) + 3 * itemsize]
+    (s, l), t = cdc_scan.GearScanner(
+        ms, ml, backend="pallas", device=cuda).scan_transform_async(
+            data, itemsize).result()
+    rt = codec.byteplane_forward(data, itemsize)
+    rs, rl = cdc_scan.scan_candidates_numpy(rt, ms, ml)
+    np.testing.assert_array_equal(t, rt)
+    np.testing.assert_array_equal(s, rs)
+    np.testing.assert_array_equal(l, rl)
+    np.testing.assert_array_equal(
+        cdc_scan.transform_async(data, itemsize, cuda).result(), rt)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("rows,d", [((16,), 64), ((37,), 96), ((3, 5), 128),
+                                    ((4096,), 1152), ((2048, 4), 256)])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, tol, rows, d):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(d)
+    x = torch.randn((*rows, d), generator=g, device=cuda).to(dtype)
+    s = (torch.randn((d,), generator=g, device=cuda) * 0.1).to(dtype)
+    before = rn.launches
+    got = rn.rmsnorm_fused(x, s)
+    assert rn.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got.float(), rn.rmsnorm_plain(x, s).float(),
+                               atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("B,S,H,K,D,causal,window,softcap", [
+    (1, 64, 4, 4, 32, True, 0, 0.0), (2, 128, 4, 1, 16, True, 0, 0.0),
+    (1, 96, 8, 2, 64, True, 0, 0.0), (1, 60, 2, 2, 16, True, 0, 0.0),
+    (1, 80, 4, 2, 32, True, 16, 0.0), (1, 80, 4, 2, 32, True, 0, 30.0),
+    (1, 80, 4, 2, 32, False, 24, 0.0), (1, 80, 4, 2, 32, False, 0, 0.0),
+    (2, 700, 4, 1, 256, True, 512, 0.0), (1, 300, 4, 1, 128, True, 0, 0.0),
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, B, S, H, K,
+                                              D, causal, window, softcap):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(S + D)
+    q, k, v = (torch.randn((B, S, n, D), generator=g, device=cuda).to(dtype)
+               for n in (H, K, K))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(),
+                               fa.flash_attention_plain(q, k, v, **kw).float(),
+                               atol=tol, rtol=0)
