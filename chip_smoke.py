@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py                # everything, as documented below
     python3 chip_smoke.py --parity-only  # build + kernel parity, no main path
-    python3 chip_smoke.py --profile      # + device time of save 2 / restore
-                                         #   and of the uninterrupted serve
+    python3 chip_smoke.py --profile      # + device time of save 2 / restore,
+                                         #   of the uninterrupted serve and
+                                         #   of one training step
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
@@ -32,19 +33,39 @@
    uninterrupted, then again preempted at token 32 into a fresh workdir,
    then resumed from that checkpoint; the resumed tokens must equal the
    uninterrupted run's, and the launch counts of K7 and K8 must be > 0.
-5. Prints one JSON line of per-kernel numbers (CUDA-event times at each
+5. The training path: ``repro_torch.train.loop.Trainer`` trains
+   full-width gemma3-1b (bf16 params, f32 AdamW; synthetic pipeline seed
+   0, batch 4, sequence 1024 > window 512); each step runs under
+   deterministic algorithms, as in the launcher. Run A takes four steps uninterrupted; run B, in a fresh
+   workdir with the checkpoint round's policy and ``ckpt_every=2``, is
+   preempted after step 3 (``PreemptionGuard.request()``: blocking save);
+   a new Trainer restores step 3 — K4 decoding every params leaf on the
+   card — and runs step 4, whose ``params_digest`` must equal run A's.
+   The trained state is then saved with ``params_codec="int8"`` through
+   the K5 route and through the host oracle (``device_precondition=
+   False``): manifests and CAS objects must be identical; the params
+   restored through K6 must equal the host decode bit for bit. K1-K8 must
+   all have launched in the phase.
+6. Prints one JSON line of per-kernel numbers (CUDA-event times at each
    path's largest shapes, bounds from the bytes or operations each kernel
    needs, the plain version's and a library call's time), one JSON line of
    end-to-end numbers, and last the ``{"ok": true, "device": ...}`` line.
    Any failure exits non-zero.
 
+K4-K6 join the parity phase: K4 byte for byte on the same inputs and
+itemsizes as K2 (and K4 of K2 is the identity), K5 byte for byte on q and
+bit for bit on the scales over bf16/f32 inputs with exact .5 ties,
+all-zero blocks and ragged lengths, K6 bit for bit on both output dtypes.
+
 It imports nothing of JAX or of the ``repro`` package. Scratch checkpoints
-go to ``build/chip_smoke_store`` and ``build/chip_smoke_serve`` (removed at
+go to ``build/chip_smoke_store``, ``build/chip_smoke_serve`` and
+``build/chip_smoke_train`` (each removed when its phase ends, and all at
 the end), logs to ``chiprun_out/``.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -56,8 +77,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
 BF16_FLOPS = 989e12                # H100 SXM dense bf16, NVIDIA data sheet
 F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
-# cuBLAS picks the same algorithms run to run on one stream; the workspace
-# setting makes that hold for any stream layout too (set before CUDA starts)
+# the deterministic train step needs cuBLAS's workspace setting before the
+# process first uses cuBLAS (the serving phase runs before training), as
+# ``python -m repro_torch.launch.train`` sets it
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 MIN_FREE_BYTES = 25e9
 MiB = 1 << 20
@@ -212,7 +234,12 @@ def parity(dev):
             a, b = bp.forward_planes(u8, k), bp.forward_plain(u8, k)
             if not torch.equal(a, b):
                 fail(f"K2 byteplane_fwd != plain on {name} k={k}")
-            checks += 1
+            if not torch.equal(bp.inverse_planes(u8, k),
+                               bp.inverse_plain(u8, k)):
+                fail(f"K4 byteplane_inv != plain on {name} k={k}")
+            if not torch.equal(bp.inverse_planes(a, k), u8):
+                fail(f"K4 of K2 is not the identity on {name} k={k}")
+            checks += 3
         padded = torch.zeros(cdc_scan.padded_len(n), dtype=torch.uint8,
                              device=dev)
         padded[cdc_scan.WINDOW:cdc_scan.WINDOW + n] = u8
@@ -264,11 +291,53 @@ def parity(dev):
                           rt):
         fail("transform_async on the card != numpy oracle")
     say(f"parity: {checks + 2} kernel/plain comparisons byte-identical "
-        f"({len(inputs)} inputs, k in 1/2/4/8); 16 MiB candidate slice, "
-        f"RLE and rANS streams, scan_transform_async and transform_async "
-        f"identical to the numpy oracles")
+        f"({len(inputs)} inputs, k in 1/2/4/8, K1-K4); 16 MiB candidate "
+        f"slice, RLE and rANS streams, scan_transform_async and "
+        f"transform_async identical to the numpy oracles")
     del inputs
     torch.cuda.empty_cache()
+    int8_parity(dev, g)
+
+
+def int8_parity(dev, g):
+    """K5 and K6 against their plain versions, bit for bit: blocks whose
+    amax is 127 or 254 (scale 1.0 or 2.0) holding exact .5 ties of the
+    quotient, all-zero blocks, random normals and subnormal-scale blocks,
+    in bf16 and f32, at ragged lengths."""
+    import torch
+
+    from repro_torch.kernels.ckpt_codec import int8_codec as ic
+    B = ic.BLOCK
+    nb = 4099
+    halves = (torch.randint(-253, 254, (nb, B), generator=g, device=dev)
+              .float() * 0.5)                 # k + 0.5 ties and integers
+    ties = torch.where(torch.arange(nb, device=dev)[:, None] % 2 == 0,
+                       halves, halves * 2.0)  # scale 1 and scale 2 blocks
+    ties[:, 0] = torch.where(torch.arange(nb, device=dev) % 2 == 0, 127.0,
+                             254.0)
+    ties[::7] = 0.0                           # all-zero blocks
+    normal = torch.randn((nb, B), generator=g, device=dev) * 0.02
+    tiny = torch.randn((nb, B), generator=g, device=dev) * 1e-39
+    checks = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, x in (("ties", ties), ("normal", normal), ("tiny", tiny)):
+            flat = x.to(dtype).reshape(-1)
+            for n in (flat.numel(), flat.numel() - 77, 1, 300):
+                xs = flat[:n]
+                (q, s), (pq, ps) = ic.quantize_blocks(xs), \
+                    ic.quantize_plain(xs)
+                if not (torch.equal(q, pq) and torch.equal(bits(s), bits(ps))):
+                    fail(f"K5 quantize != plain on {name} {dtype} n={n}")
+                for out in (torch.bfloat16, torch.float32):
+                    a = ic.dequantize_blocks(q, s, n, out)
+                    b = ic.dequantize_plain(q, s, n, out)
+                    if not torch.equal(bits(a), bits(b)):
+                        fail(f"K6 dequantize != plain on {name} {dtype} "
+                             f"n={n} -> {out}")
+                checks += 3
+    torch.cuda.synchronize()
+    say(f"parity: K5/K6 {checks} comparisons bit-identical (ties, zero "
+        f"blocks, normals, subnormal scales; bf16/f32; ragged lengths)")
 
 
 # tolerances of tests/test_kernels.py:34, :66 (the sums run in another
@@ -523,24 +592,30 @@ def main_path(dev, card: str, profile: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# phase 4 — per-kernel numbers at the main path's largest shapes
+# phase 6 — per-kernel numbers at each path's largest shapes
 # ---------------------------------------------------------------------------
 
 def kernel_table(dev, embed, launches: dict) -> list:
-    """Time each kernel and its plain version on the largest payload the
-    main path gives it: params/embed (the fused dispatch's biggest)."""
+    """Time each checkpoint kernel (K1-K6) and its plain version on the
+    largest payload its path gives it, params/embed (603,979,776 bytes of
+    bf16): K1-K3 over the save's fused dispatch, K4 over the transformed
+    stream, K5 over the leaf, K6 back to bf16. `launches`: each kernel's
+    count on its path (the checkpoint round's for K1-K3, the training
+    phase's for K4-K6)."""
     import torch
 
     from repro_torch.core import cdc_scan
     from repro_torch.core.cdc import GearChunker
     from repro_torch.kernels.ckpt_codec import byteplane as bp
     from repro_torch.kernels.ckpt_codec import entropy as ent
+    from repro_torch.kernels.ckpt_codec import int8_codec as ic
 
     ck = GearChunker(MiB, device=dev)          # the main path's masks
     ms, ml = int(ck.mask_strict), int(ck.mask_loose)
     raw = embed.reshape(-1).view(torch.uint8)
     n = raw.numel()
     t = bp.forward_planes(raw, 2)
+    d2 = t.view(2, n // 2)
     padded = torch.zeros(cdc_scan.padded_len(n), dtype=torch.uint8,
                          device=dev)
     padded[cdc_scan.WINDOW:cdc_scan.WINDOW + n] = t
@@ -548,43 +623,68 @@ def kernel_table(dev, embed, launches: dict) -> list:
     blk = torch.zeros(nb * ent.B, dtype=torch.uint8, device=dev)
     blk[:n] = t
     blk = blk.view(nb, ent.B)
-    saved = dict(launches)
+    flat = embed.reshape(-1)
+    ne = flat.numel()
+    q, sc = ic.quantize_blocks(flat)
+    nq = sc.numel()
     rows = []
+    # name, source, replaces, kernel, plain, bytes moved, shape,
+    # library call (or None) and what it is
     specs = [
         ("gear_scan", "src/repro_torch/csrc/gear_scan.cu",
          "src/repro/core/cdc_scan.py:301",
          lambda: cdc_scan.gear_scan(padded, ms, ml),
          lambda: cdc_scan.gear_scan_plain(padded, ms, ml),
-         2 * padded.numel(), list(padded.shape)),
+         2 * padded.numel(), list(padded.shape), None, None),
         ("byteplane_fwd", "src/repro_torch/csrc/byteplane_fwd.cu",
          "src/repro/kernels/ckpt_codec/byteplane.py:101",
          lambda: bp.forward_planes(raw, 2),
-         lambda: bp.forward_plain(raw, 2), 2 * n, [n]),
+         lambda: bp.forward_plain(raw, 2), 2 * n, [n], None, None),
         ("rle_emit", "src/repro_torch/csrc/rle_emit.cu",
          "src/repro/kernels/ckpt_codec/entropy.py:88",
          lambda: ent.rle_emission(blk, n),
          lambda: ent.rle_emission_plain(blk, n), 3 * blk.numel(),
-         list(blk.shape)),
+         list(blk.shape), None, None),
+        ("byteplane_inv", "src/repro_torch/csrc/byteplane_inv.cu",
+         "src/repro/kernels/ckpt_codec/byteplane.py:127",
+         lambda: bp.inverse_planes(t, 2), lambda: bp.inverse_plain(t, 2),
+         2 * n, [n],
+         lambda: torch.cumsum(d2, dim=1, dtype=torch.uint8).t().contiguous(),
+         "torch.cumsum(d, dim=1, dtype=torch.uint8) + transpose"),
+        ("quantize_blocks", "src/repro_torch/csrc/int8_codec.cu",
+         "src/repro/kernels/ckpt_codec/kernel.py:32",
+         lambda: ic.quantize_blocks(flat), lambda: ic.quantize_plain(flat),
+         2 * ne + nq * ic.BLOCK + 4 * nq, [ne], None, None),
+        ("dequantize_blocks", "src/repro_torch/csrc/int8_codec.cu",
+         "src/repro/kernels/ckpt_codec/kernel.py:64",
+         lambda: ic.dequantize_blocks(q, sc, ne, torch.bfloat16),
+         lambda: ic.dequantize_plain(q, sc, ne, torch.bfloat16),
+         nq * ic.BLOCK + 4 * nq + 2 * ne, [ne], None, None),
     ]
-    for name, src, replaces, kern, plain, moved, shape in specs:
+    for name, src, replaces, kern, plain, moved, shape, lib, lib_what \
+            in specs:
         a, b = kern(), plain()
         if not isinstance(a, tuple):
             a, b = (a,), (b,)
-        err = max(max_abs_err(x, y) for x, y in zip(a, b))
+        err = max(max_abs_err(bits(x), bits(y)) for x, y in zip(a, b))
         if err:
-            fail(f"{name} disagrees with its plain version at the main "
-                 f"path's shape (max abs err {err})")
+            fail(f"{name} disagrees with its plain version at params/embed "
+                 f"(max abs err {err})")
         del a, b
-        ms_k = time_ms(kern, iters=10)
-        ms_p = time_ms(plain, iters=2)
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": err, "ms": time_ms(kern, iters=10),
+               "plain_ms": time_ms(plain, iters=2),
+               "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes",
+               "library_ms": time_ms(lib, iters=10) if lib else None,
+               "shape": shape, "dtype": "bfloat16"}
+        if lib_what:
+            row["library_call"] = lib_what
+        rows.append(row)
         torch.cuda.empty_cache()
-        rows.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": saved[name],
-            "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
-            "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": None, "shape": shape,
-        })
+    if not torch.equal(bp.inverse_planes(t, 2), raw):
+        fail("K4 does not invert K2 at params/embed")
     return rows
 
 
@@ -747,6 +847,272 @@ def model_kernel_table(dev, launches: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 5 — the training path
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(batch=4, seq_len=1024, seed=0)
+TRAIN_STEPS = 4
+PREEMPT_AFTER = 3
+
+
+def _counters():
+    from repro_torch.core import cdc_scan
+    from repro_torch.kernels.ckpt_codec import byteplane as bp
+    from repro_torch.kernels.ckpt_codec import entropy as ent
+    from repro_torch.kernels.ckpt_codec import int8_codec as ic
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rn
+    # kernel → (module, counter attribute)
+    return {"gear_scan": (cdc_scan, "launches"),
+            "byteplane_fwd": (bp, "launches"),
+            "rle_emit": (ent, "launches"),
+            "byteplane_inv": (bp, "inverse_launches"),
+            "quantize_blocks": (ic, "quantize_launches"),
+            "dequantize_blocks": (ic, "dequantize_launches"),
+            "rmsnorm": (rn, "launches"),
+            "flash_attention": (fa, "launches")}
+
+
+def reset_counts():
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
+
+
+def _record_rounds(manager, into: list):
+    """Keep each checkpoint round's report (the trainer's async saves
+    report their persist time only when the round lands)."""
+    inner = manager._write_round
+
+    def write_round(*a, **kw):
+        rep = inner(*a, **kw)
+        into.append({k: rep.get(k) for k in (
+            "step", "seconds", "blocking_s", "snapshot_s", "overlapped",
+            "bytes", "new_object_bytes", "chunks")})
+        return rep
+
+    manager._write_round = write_round
+
+
+def training(dev, card: str, profile: bool = False):
+    """Run A (uninterrupted), run B (preempted after step 3) and its
+    resume; then the int8 routes. Returns (stats, launches)."""
+    import torch
+
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.core.policy import (CheckpointPolicy, ChunkingPolicy,
+                                         CodecPolicy, DurabilityPolicy,
+                                         PipelinePolicy)
+    from repro_torch.core.preempt import PreemptionGuard
+    from repro_torch.core.split_state import leaf_paths
+    from repro_torch.core.storage import Tier, TieredStore
+    from repro_torch.train.loop import Trainer, TrainerConfig
+
+    cfg = gemma3_1b.CONFIG
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    # the checkpoint round's keepalive (10 GB rounds on a shared host)
+    os.environ["REPRO_CKPT_KEEPALIVE_S"] = "60"
+    # the checkpoint round's policy, as TrainerConfig fields; retain 1
+    # bounds the disk to two 10 GB rounds
+    ckpt = dict(ckpt_mode="incremental", chunking="cdc", chunk_size=MiB,
+                codec="raw", params_codec="byteplane-rle", io_threads=8,
+                async_ckpt=True, ckpt_every=2, retain=1)
+
+    def store(name):
+        return TieredStore(Tier("fast", root / name))
+
+    stats = {"arch": cfg.arch_id, **TRAIN, "steps": TRAIN_STEPS,
+             "preempt_after": PREEMPT_AFTER, "card": card,
+             "profiled": profile}
+    try:
+        reset_counts()
+        # ---- run A: uninterrupted -------------------------------------
+        torch.cuda.reset_peak_memory_stats(dev)
+        tA = Trainer(cfg, TrainerConfig(workdir=str(root / "a"), log_every=1,
+                                        ckpt_every=0, **TRAIN),
+                     store=store("a"), device=dev)
+        t0 = time.monotonic()
+        tA.init_or_restore()
+        torch.cuda.synchronize()
+        stats["init_s"] = time.monotonic() - t0
+        # stop_after leaves the run "paused": no end-of-run save
+        tA.fit(TRAIN_STEPS, stop_after=2)
+        with DeviceProfile(profile, host=True) as prof:
+            t0 = time.monotonic()
+            tA.fit(TRAIN_STEPS, stop_after=1)
+            prof_s = time.monotonic() - t0
+        tA.fit(TRAIN_STEPS, stop_after=1)
+        torch.cuda.synchronize()
+        stats["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+        hist = tA.history
+        stats["loss"] = [h["loss"] for h in hist]
+        stats["step_s"] = [h["step_s"] for h in hist]
+        stats["grad_norm"] = [h["grad_norm"] for h in hist]
+        # steps after the first (which includes first-call set-up)
+        stats["tokens_per_s"] = TRAIN["batch"] * TRAIN["seq_len"] * \
+            (TRAIN_STEPS - 1) / sum(stats["step_s"][1:])
+        if profile:
+            stats["device_step"] = prof.summary(prof_s)
+        digest_a = tA.params_digest()
+        state_bytes = sum(t.nbytes for _, t in leaf_paths(tA.state))
+        stats["state_bytes"] = state_bytes
+        tA.manager.close()
+        del tA
+        torch.cuda.empty_cache()
+        say(f"train A: {TRAIN_STEPS} steps, loss {stats['loss']}, step s "
+            f"{stats['step_s']}, peak {stats['peak_device_bytes']} bytes, "
+            f"state {state_bytes} bytes, digest {digest_a[:16]}")
+        if not all(math.isfinite(x) for x in stats["loss"]):
+            fail(f"training loss is not finite: {stats['loss']}")
+        # ---- run B: preempted after step 3 ----------------------------
+        tcfg_b = TrainerConfig(workdir=str(root / "b"), log_every=1,
+                               **TRAIN, **ckpt)
+        tB = Trainer(cfg, tcfg_b, store=store("b"), device=dev)
+        rounds: list = []
+        _record_rounds(tB.manager, rounds)
+        tB.init_or_restore()
+        with PreemptionGuard() as guard:
+            tB.fit(TRAIN_STEPS, guard=guard, stop_after=PREEMPT_AFTER)
+            guard.request()
+            t0 = time.monotonic()
+            rep = tB.fit(TRAIN_STEPS, guard=guard)
+            stats["preempt_exit_s"] = time.monotonic() - t0
+        if rep["status"] != "preempted" or rep["step"] != PREEMPT_AFTER \
+                or tB.manager.latest_step() != PREEMPT_AFTER:
+            fail(f"run B ended {rep['status']} at step {rep['step']} "
+                 f"(latest checkpoint {tB.manager.latest_step()})")
+        if [h["loss"] for h in tB.history] != stats["loss"][:PREEMPT_AFTER]:
+            fail("run B's losses differ from run A's before the preemption")
+        tB.manager.close()
+        del tB
+        torch.cuda.empty_cache()
+        # ---- resume: K4 decodes every params leaf on restore ----------
+        tC = Trainer(cfg, tcfg_b, store=store("b"), device=dev)
+        _record_rounds(tC.manager, rounds)
+        ends: list = []
+        inner = tC.step_fn
+
+        def timed_step(state, batch):
+            out = inner(state, batch)
+            torch.cuda.synchronize()
+            ends.append(time.monotonic())
+            return out
+
+        tC.step_fn = timed_step
+        k4_before = read_counts()["byteplane_inv"]
+        t0 = time.monotonic()
+        tC.init_or_restore()
+        torch.cuda.synchronize()
+        stats["restore_s"] = time.monotonic() - t0
+        k4 = read_counts()["byteplane_inv"] - k4_before
+        n_params = len(leaf_paths(tC.state["params"]))
+        if tC.restored_from != PREEMPT_AFTER or k4 < n_params:
+            fail(f"resume restored step {tC.restored_from} with {k4} K4 "
+                 f"launches for {n_params} params leaves")
+        out = tC.fit(TRAIN_STEPS)
+        stats["restore_to_first_step_s"] = ends[0] - t0
+        stats["resumed_loss"] = [h["loss"] for h in tC.history]
+        digest_c = tC.params_digest()
+        if out["status"] != "completed" or digest_c != digest_a:
+            fail(f"the resumed run's params_digest {digest_c[:16]} != the "
+                 f"uninterrupted run's {digest_a[:16]} ({out['status']})")
+        if stats["resumed_loss"] != stats["loss"][PREEMPT_AFTER:]:
+            fail("the resumed step's loss differs from run A's")
+        stats["saves"] = rounds
+        stats["restore_k4_launches"] = k4
+        say(f"train B/resume: preempted at step {PREEMPT_AFTER}, restored "
+            f"in {stats['restore_s']:.3f} s ({k4} K4 launches), first "
+            f"resumed step done {stats['restore_to_first_step_s']:.3f} s "
+            f"after the restore began; params_digest identical; saves "
+            f"{json.dumps(rounds)}")
+        tC.manager.close()
+        state = tC.state
+        del tC
+        shutil.rmtree(root / "b", ignore_errors=True)
+        # ---- int8: K5 save route vs the host oracle, K6 restore -------
+        def int8_manager(name, **codec):
+            return CheckpointManager(store(name), CheckpointPolicy(
+                mode="incremental",
+                chunking=ChunkingPolicy(scheme="cdc", chunk_size=MiB),
+                pipeline=PipelinePolicy(io_threads=8),
+                durability=DurabilityPolicy(keepalive_s=60.0),
+                codec=CodecPolicy(codec="raw", params_codec="int8",
+                                  **codec)), device=dev)
+
+        mgr_d = int8_manager("int8_device")
+        mgr_h = int8_manager("int8_host", device_precondition=False)
+        step = TRAIN_STEPS
+        t0 = time.monotonic()
+        k5_before = read_counts()["quantize_blocks"]
+        rep_d = mgr_d.save(state, step)
+        stats["int8_device_save_s"] = time.monotonic() - t0
+        k5 = read_counts()["quantize_blocks"] - k5_before
+        t0 = time.monotonic()
+        rep_h = mgr_h.save(state, step)
+        stats["int8_host_save_s"] = time.monotonic() - t0
+        if read_counts()["quantize_blocks"] != k5_before + k5 or \
+                k5 < n_params:
+            fail(f"K5 launched {k5} times for {n_params} params leaves "
+                 "(or the host route launched it)")
+        leaves_d = mgr_d.load_manifest(step)["leaves"]
+        leaves_h = mgr_h.load_manifest(step)["leaves"]
+        objs = {"int8_device": mgr_d.chunks.digests_on_disk(),
+                "int8_host": mgr_h.chunks.digests_on_disk()}
+        if leaves_d != leaves_h or objs["int8_device"] != objs["int8_host"]:
+            fail("int8 saves: the K5 route's manifest or CAS objects differ "
+                 "from the host oracle's")
+        abstract = {"params": {n: t for n, t in state["params"].items()}}
+        t0 = time.monotonic()
+        k6_before = read_counts()["dequantize_blocks"]
+        got, _ = mgr_d.restore(abstract, step=step, validate=False)
+        torch.cuda.synchronize()
+        stats["int8_device_restore_s"] = time.monotonic() - t0
+        k6 = read_counts()["dequantize_blocks"] - k6_before
+        ref, _ = mgr_h.restore(abstract, step=step, validate=False)
+        if read_counts()["dequantize_blocks"] != k6_before + k6 or \
+                k6 < n_params:
+            fail(f"K6 launched {k6} times for {n_params} params leaves "
+                 "(or the host route launched it)")
+        for (name, a), (_, b) in zip(leaf_paths(got), leaf_paths(ref)):
+            if not (a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(bits(a), bits(b))):
+                fail(f"int8 restore through K6 differs from the host "
+                     f"decode at {name}")
+        stats.update(int8_new_object_bytes=rep_d.get("new_object_bytes"),
+                     int8_save_bytes=rep_d["bytes"],
+                     int8_host_save_bytes=rep_h["bytes"],
+                     int8_objects=len(objs["int8_device"]),
+                     int8_k5_launches=k5, int8_k6_launches=k6)
+        say(f"train int8: K5 route save {stats['int8_device_save_s']:.3f} s "
+            f"(snapshot pins {rep_d['bytes']} bytes; host route "
+            f"{rep_h['bytes']}), host route "
+            f"{stats['int8_host_save_s']:.3f} s: identical manifests and "
+            f"{len(objs['int8_device'])} CAS objects; K6 restore of the "
+            f"params {stats['int8_device_restore_s']:.3f} s, equal to the "
+            f"host decode")
+        mgr_d.close()
+        mgr_h.close()
+        del state, got, ref
+    finally:
+        os.environ.pop("REPRO_CKPT_KEEPALIVE_S", None)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    launches = read_counts()
+    stats["launches"] = launches
+    say(f"train: launches over the phase {launches}")
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"kernel {k} was not launched on the training path")
+    return stats, launches
+
+
 def rans_stage_ms(dev) -> dict:
     """The byteplane-rans device entropy stage (PyTorch ops, no kernel of
     its own yet) on 64 MiB of a bf16 leaf's transformed stream."""
@@ -784,8 +1150,9 @@ def main() -> int:
     from repro_torch.kernels import build
     t0 = time.monotonic()
     logs = build.build_all()
-    say(f"build: {len(logs)} kernels in {time.monotonic() - t0:.3f} s "
-        f"(nvcc, sm_90a) into {build.build_dir()}")
+    say(f"build: {len(build.KERNELS)} kernels from {len(logs)} sources in "
+        f"{time.monotonic() - t0:.3f} s (nvcc, sm_90a) into "
+        f"{build.build_dir()}")
     (out_dir / "chip_smoke_ptxas.log").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     dev = torch.device("cuda")
@@ -797,24 +1164,31 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    state, launches, stats = main_path(dev, card,
-                                       profile="--profile" in sys.argv[1:])
+    profile = "--profile" in sys.argv[1:]
+    reset_counts()
+    state, launches, stats = main_path(dev, card, profile=profile)
     embed = state["params"]["embed"]
     del state
     torch.cuda.empty_cache()
-    rows = kernel_table(dev, embed, launches)
+    reset_counts()
+    serve_stats, serve_launches = serving(dev, card, profile=profile)
+    reset_counts()
+    train_stats, train_launches = training(dev, card, profile=profile)
+    codec = ("byteplane_inv", "quantize_blocks", "dequantize_blocks")
+    rows = kernel_table(dev, embed, {
+        **launches, **{k: train_launches[k] for k in codec}})
     del embed
     torch.cuda.empty_cache()
-    serve_stats, serve_launches = serving(
-        dev, card, profile="--profile" in sys.argv[1:])
     rows += model_kernel_table(dev, serve_launches)
     stats["rans_stage"] = rans_stage_ms(dev)
     say(card)
-    say(json.dumps({"main_path": stats, "serving": serve_stats}))
+    say(json.dumps({"main_path": stats, "serving": serve_stats,
+                    "training": train_stats}))
     say(json.dumps({"kernels": rows}))
     (out_dir / "chip_smoke_report.json").write_text(
         json.dumps({"card": card, "main_path": stats,
-                    "serving": serve_stats, "kernels": rows}, indent=1))
+                    "serving": serve_stats, "training": train_stats,
+                    "kernels": rows}, indent=1))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -204,6 +204,9 @@ class CheckpointManager:
         # pinning (the serial engine is the host-oracle serial baseline)
         self.device_entropy = policy.codec.entropy_enabled(
             policy.pipeline.serial)
+        # restore's device decode (K4 for byteplane leaves, K6 for int8)
+        # follows the same knob and the same serial pinning
+        self._restore.device_decode = self.device_precondition
         self.chunks.chunk_size = int(policy.chunking.chunk_size)
 
     # ---- policy-backed views (the pre-policy attribute surface) ----
@@ -266,7 +269,8 @@ class CheckpointManager:
             # HERE (depth-1 parity: its wait() raises on the next save) —
             # never silently, checkpoints after it would be a lie.
             self._persist.raise_pending()
-            est = save_path.estimate_snapshot_bytes(state)
+            est = save_path.estimate_snapshot_bytes(state,
+                                                    self._device_int8())
             admit_s = self._persist.admit(est)
         else:
             # P4: quiescence before snapshot (depth-1 behaviour — and the
@@ -442,12 +446,24 @@ class CheckpointManager:
         """Stage 0: device → host copy (``save_path.snapshot_items``) —
         the only part of an overlapped save the training thread waits on.
         Kept as an instance method so tests can interpose topologies."""
-        return save_path.snapshot_items(state, self._restore_exec)
+        return save_path.snapshot_items(state, self._restore_exec,
+                                        quantize=self._device_int8())
 
     def _leaf_codec(self, leaf_name: str) -> str:
         if leaf_name.startswith("params/"):
             return self.params_codec
         return self.codec
+
+    def _device_int8(self):
+        """The leaf-name predicate of the snapshot's K5 route (int8-coded
+        leaves quantized on the device before the D2H copy; same payload
+        and meta as the host codec), or None where device pre-conditioning
+        is off: the serial engine and ``device_precondition=False`` keep
+        the host oracle."""
+        if not self.device_precondition or \
+                "int8" not in (self.codec, self.params_codec):
+            return None
+        return lambda name: self._leaf_codec(name) == "int8"
 
     def _write_round(self, items, registry, state, step, extra, total, t0,
                      snap_s, wait_s, crash, commit_total,

@@ -629,8 +629,67 @@ def encode_preconditioned(transformed, codec: str):
     raise ValueError(f"codec {codec!r} is not a preconditioned codec")
 
 
-def encode(arr: np.ndarray, codec: str) -> tuple:
-    """Returns (payload_bytes, meta_dict)."""
+class Quantized:
+    """An int8-coded leaf between its stages: ``q`` (int8, the element
+    count rounded up to a BLOCK multiple), the f32 block ``scales``, the
+    element count ``n``, and the logical ``dtype`` (numpy, bf16 as
+    ``BF16``) and ``shape`` of the leaf it encodes. The snapshot's K5 route
+    hands one to ``encode`` in place of the host array (``dtype``/``shape``
+    /``nbytes`` describe what the snapshot pins); the restore's device
+    route hands one to K6. ``decode`` is the host oracle's finish."""
+
+    def __init__(self, q, scales, n: int, dtype, shape):
+        self.q = np.asarray(q).reshape(-1).view(np.int8)
+        self.scales = np.asarray(scales, np.float32).reshape(-1)
+        self.n = int(n)
+        self.dtype = _np_dtype(dtype_name(dtype))
+        self.shape = tuple(shape)
+
+    @property
+    def nbytes(self) -> int:
+        return self.q.nbytes + self.scales.nbytes
+
+    def decode(self) -> np.ndarray:
+        x = dequantize_int8(self.q, self.scales, self.n)
+        if dtype_name(self.dtype) == "bfloat16":
+            return _f32_to_bf16(x).reshape(self.shape)
+        return x.astype(self.dtype, copy=False).reshape(self.shape)
+
+
+def quantized_nbytes(n: int) -> int:
+    """Bytes of a ``Quantized`` of `n` elements (q + scales): what the K5
+    snapshot route pins for a leaf instead of its raw bytes."""
+    nb = -(-int(n) // BLOCK)
+    return nb * BLOCK + nb * 4
+
+
+class Planes:
+    """A byteplane-coded leaf after its entropy and zstd stages: the
+    transformed ``stream`` (uint8), the element width ``k`` of the inverse,
+    and the leaf's logical ``dtype`` and ``shape``. ``decode`` is the host
+    inverse (the oracle); the restore's device route runs K4 on the
+    stream instead."""
+
+    def __init__(self, stream, k: int, dtype, shape):
+        self.stream = stream if isinstance(stream, np.ndarray) \
+            else np.frombuffer(stream, np.uint8)
+        self.k = int(k)
+        self.dtype = _np_dtype(dtype_name(dtype))
+        self.shape = tuple(shape)
+
+    @property
+    def nbytes(self) -> int:
+        return self.stream.nbytes
+
+    def decode(self) -> np.ndarray:
+        raw = byteplane_inverse(self.stream, self.k)
+        return raw.view(self.dtype).reshape(self.shape)
+
+
+def encode(arr, codec: str) -> tuple:
+    """Returns (payload_bytes, meta_dict). For ``int8``, `arr` may be a
+    ``Quantized`` (quantized on the device): the same payload and meta as
+    quantizing the host array here."""
     if codec == "raw":
         return arr.tobytes(), {}
     if codec == "zstd":
@@ -648,22 +707,28 @@ def encode(arr: np.ndarray, codec: str) -> tuple:
         t = byteplane_forward(contig_u8(arr), arr.dtype.itemsize)
         return plane_stream_encode(t, codec)[0].tobytes(), byteplane_meta(arr)
     if codec == "int8":
-        q, scales = quantize_int8(arr)
+        if isinstance(arr, Quantized):
+            q, scales, n = arr.q, arr.scales, arr.n
+        else:
+            (q, scales), n = quantize_int8(arr), arr.size
         blob = q.tobytes() + scales.tobytes()
-        meta = {"q_bytes": q.nbytes, "s_bytes": scales.nbytes, "n": arr.size}
+        meta = {"q_bytes": q.nbytes, "s_bytes": scales.nbytes, "n": n}
         if HAVE_ZSTD:
             return _zc().compress(blob), meta
         return blob, dict(meta, z=0)   # uncompressed, self-describing
     raise ValueError(f"unknown codec {codec!r}")
 
 
-def decode(payload: bytes, codec: str, shape, dtype, meta: dict) -> np.ndarray:
+STAGED = PRECONDITIONED + ("int8",)   # codecs with a last transform
+
+
+def decode_stages(payload: bytes, codec: str, shape, dtype, meta: dict):
+    """The host stages of ``decode`` before its last transform, for the
+    codecs in ``STAGED``: a ``Planes`` (byteplane codecs: the stream after
+    the entropy/zstd stage) or a ``Quantized`` (int8: q and the scales).
+    Their ``decode()`` is the rest of ``decode``; the restore's device route
+    runs K4/K6 on them instead."""
     dtype = np.dtype(dtype) if not str(dtype).startswith("bfloat") else dtype
-    if codec == "raw":
-        return np.frombuffer(payload, dtype=_np_dtype(dtype)).reshape(shape)
-    if codec == "zstd":
-        raw = _zd().decompress(payload)
-        return np.frombuffer(raw, dtype=_np_dtype(dtype)).reshape(shape)
     if codec in PRECONDITIONED:
         k = int(meta.get("bp") or _np_dtype(dtype).itemsize)
         if codec in CHUNK_ENCODED:
@@ -674,16 +739,24 @@ def decode(payload: bytes, codec: str, shape, dtype, meta: dict) -> np.ndarray:
             u8 = payload
         else:
             u8 = _zd().decompress(payload)
-        raw = byteplane_inverse(u8, k)
-        return raw.view(_np_dtype(dtype)).reshape(shape)
+        return Planes(u8, k, dtype, shape)
     if codec == "int8":
         raw = payload if not meta.get("z", 1) else _zd().decompress(payload)
         q = np.frombuffer(raw[:meta["q_bytes"]], np.int8)
         scales = np.frombuffer(raw[meta["q_bytes"]:], np.float32)
-        x = dequantize_int8(q, scales, meta["n"])
-        if str(dtype) == "bfloat16":
-            return _f32_to_bf16(x).reshape(shape)
-        return x.astype(_np_dtype(dtype), copy=False).reshape(shape)
+        return Quantized(q, scales, meta["n"], dtype, shape)
+    raise ValueError(f"codec {codec!r} has no staged decode")
+
+
+def decode(payload: bytes, codec: str, shape, dtype, meta: dict) -> np.ndarray:
+    dtype = np.dtype(dtype) if not str(dtype).startswith("bfloat") else dtype
+    if codec == "raw":
+        return np.frombuffer(payload, dtype=_np_dtype(dtype)).reshape(shape)
+    if codec == "zstd":
+        raw = _zd().decompress(payload)
+        return np.frombuffer(raw, dtype=_np_dtype(dtype)).reshape(shape)
+    if codec in STAGED:
+        return decode_stages(payload, codec, shape, dtype, meta).decode()
     raise ValueError(f"unknown codec {codec!r}")
 
 

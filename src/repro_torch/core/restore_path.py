@@ -34,13 +34,15 @@ import numpy as np
 from . import codec as codec_mod
 from . import resilience
 from .elastic import (ShardRange, assemble, leaf_first_use_class,
-                      plan_reads)
+                      overlap, plan_reads)
 from .errors import CorruptShardError, MissingShardError, warn
 from .split_state import tree_unflatten
 
 
-def unpack_shard(data: bytes):
-    """Full-mode (v2) inline shard file → (ShardRange, array)."""
+def unpack_shard(data: bytes, staged: bool = False):
+    """Full-mode (v2) inline shard file → (ShardRange, array); with
+    `staged`, a ``STAGED`` codec's payload stops before its last transform
+    (``codec.decode_stages``)."""
     import msgpack      # only full-mode shard files need it
     hlen = int.from_bytes(data[:4], "little")
     header = msgpack.unpackb(data[4:4 + hlen])
@@ -48,9 +50,37 @@ def unpack_shard(data: bytes):
     if (zlib.crc32(payload) & 0xFFFFFFFF) != header["crc32"]:
         raise CorruptShardError("payload crc mismatch", leaf=header["leaf"])
     rng = ShardRange(tuple(header["start"]), tuple(header["stop"]))
-    arr = codec_mod.decode(payload, header["codec"], rng.shape,
-                           header["global_dtype"], header["meta"])
+    decode = codec_mod.decode_stages if staged else codec_mod.decode
+    arr = decode(payload, header["codec"], rng.shape,
+                 header["global_dtype"], header["meta"])
     return rng, arr
+
+
+class StagedLeaf:
+    """A leaf fetched for the device decode: the saved shards that cover
+    it, as ``(ShardRange, piece)`` pairs in the leaf's index space. A piece
+    is a ``codec.Planes`` or ``codec.Quantized`` (a ``STAGED`` codec's
+    shard before its last transform) or, for any other codec, the decoded
+    host array, each in its record's dtype."""
+
+    def __init__(self, pieces: list):
+        self.pieces = pieces
+
+
+def uncovered(target: ShardRange, ranges: list) -> int:
+    """Elements of `target` that none of `ranges` covers (0 at once for a
+    scalar with any range, or for a range equal to `target`)."""
+    if not target.shape:
+        return 0 if ranges else 1
+    if any(r == target for r in ranges):
+        return 0
+    covered = np.zeros(target.shape, dtype=bool)
+    for r in ranges:
+        ov = overlap(r, target)
+        if ov is not None:
+            covered[tuple(slice(a, b) for a, b in
+                          zip(ov.start, ov.stop))] = True
+    return int(covered.size - np.count_nonzero(covered))
 
 
 class ReadCache:
@@ -158,7 +188,17 @@ class RestorePlan:
 class RestoreSession:
     """Host-side fetch engine over one manager's store/pools/cache, plus
     device placement onto ``device``. Fetching is pure numpy + IO — safe on
-    restore pool workers; placement runs on the calling thread."""
+    restore pool workers; placement runs on the calling thread.
+
+    ``device_decode`` (the manager's ``device_precondition``: off on the
+    serial engine) moves the last decode transform onto the device: every
+    saved shard of a leaf with a byteplane codec is fetched up to its
+    transformed stream and placed through K4, every int8 shard up to q and
+    its scales and placed through K6, each into its slice of the leaf and
+    cast there when the record's dtype is not the leaf's. The restored
+    bytes are the host decode's (the kernels are bit-exact with the
+    oracles); the host copies and the H2D transfer carry the encoded
+    form."""
 
     def __init__(self, store, chunks, executor, cache: ReadCache, device):
         self.store = store
@@ -166,15 +206,36 @@ class RestoreSession:
         self.executor = executor
         self.cache = cache
         self.device = device
+        self.device_decode = False
 
     # -- leaf-level ----------------------------------------------------
-    def fetch_host(self, step_dir: str, job) -> dict:
+    def fetch_host(self, step_dir: str, job):
         """One leaf's host-side fetch: the whole leaf as a host array (one
-        device holds every leaf). Pool-worker safe (pure numpy + IO)."""
+        device holds every leaf), or, for the device decode, a
+        ``StagedLeaf``. Pool-worker safe (pure numpy + IO)."""
         name, rec, sds, np_dtype = job
         shape = tuple(sds.shape)
-        fetch = self.leaf_fetcher(step_dir, name, rec, np_dtype)
-        return fetch(ShardRange((0,) * len(shape), shape))
+        target = ShardRange((0,) * len(shape), shape)
+        if self.device_decode and any(s.get("codec") in codec_mod.STAGED
+                                      for s in rec["shards"]):
+            return self.fetch_staged(step_dir, name, rec, target)
+        return self.leaf_fetcher(step_dir, name, rec, np_dtype)(target)
+
+    def fetch_staged(self, step_dir, name, rec, target) -> "StagedLeaf":
+        """The device decode's fetch: the saved shards that cover `target`,
+        each read up to its last transform (``codec.Planes``/
+        ``codec.Quantized``; a shard of any other codec decoded)."""
+        available = [(ShardRange(tuple(s["start"]), tuple(s["stop"])), s)
+                     for s in rec["shards"]]
+        picks = plan_reads(target, available)
+        missing = uncovered(target, [rng for rng, _ in picks])
+        if missing:
+            raise MissingShardError(f"restore plan leaves {missing} "
+                                    f"elements uncovered", leaf=name)
+        return StagedLeaf([
+            (rng, self.read_shard(step_dir, s, staged=s.get("codec")
+                                  in codec_mod.STAGED))
+            for rng, s in picks])
 
     def prefetch(self, plan: RestorePlan) -> list:
         """Phase 1 (blocking): fan the per-leaf host fetches out across
@@ -199,16 +260,22 @@ class RestoreSession:
 
     def leaf_to_device(self, step_dir, job, prefetched):
         """Phase 2 (calling thread): allocate the leaf on the device and
-        copy the prefetched host array into it. bf16 and uint32 host
-        arrays cross as same-width int views (``torch.from_numpy`` takes
-        neither everywhere)."""
-        import torch
+        copy the prefetched host array into it, or finish a ``StagedLeaf``'s
+        decode there."""
         name, rec, sds, np_dtype = job
-        host = np.asarray(prefetched, order="C")
-        dt = sds.dtype
+        if isinstance(prefetched, StagedLeaf):
+            return self._decode_to_device(prefetched, sds)
+        return self._upload(prefetched, sds.dtype, tuple(sds.shape))
+
+    def _upload(self, host, dtype, shape):
+        """A host array copied into a new device tensor of `dtype`. bf16
+        and uint32 host arrays cross as same-width int views
+        (``torch.from_numpy`` takes neither everywhere)."""
+        import torch
+        host = np.asarray(host, order="C")
         carrier = {torch.bfloat16: (np.int16, torch.int16),
-                   torch.uint32: (np.int32, torch.int32)}.get(dt)
-        out = torch.empty(tuple(sds.shape), dtype=dt, device=self.device)
+                   torch.uint32: (np.int32, torch.int32)}.get(dtype)
+        out = torch.empty(shape, dtype=dtype, device=self.device)
         dst = out
         if carrier is not None:
             host = host.view(carrier[0])
@@ -219,6 +286,48 @@ class RestoreSession:
             warnings.simplefilter("ignore", UserWarning)
             src = torch.from_numpy(host)
         dst.copy_(src.reshape(dst.shape))
+        return out
+
+    def _decode_to_device(self, staged: "StagedLeaf", sds):
+        """Copy each staged shard to the device and run its last decode
+        step there (K4 over a byteplane stream, its ragged tail passed
+        through; K6 over int8 q and scales), cast it to the leaf's dtype
+        (``int8_codec.numpy_cast``, the host assemble's cast) and place it
+        in its slice of the leaf."""
+        import torch
+
+        from ..kernels.ckpt_codec import byteplane, int8_codec
+        dtype, shape = sds.dtype, tuple(sds.shape)
+        target = ShardRange((0,) * len(shape), shape)
+
+        def piece_to_device(rng, piece):
+            rdt = getattr(torch, codec_mod.dtype_name(piece.dtype))
+            if isinstance(piece, codec_mod.Planes):
+                raw = byteplane.inverse_planes(
+                    self._upload(piece.stream, torch.uint8,
+                                 piece.stream.shape), piece.k)
+                t = raw.view(rdt)
+            elif isinstance(piece, codec_mod.Quantized):
+                t = int8_codec.dequantize_blocks(
+                    self._upload(piece.q, torch.int8, piece.q.shape),
+                    self._upload(piece.scales, torch.float32,
+                                 piece.scales.shape), piece.n, rdt)
+            else:
+                t = self._upload(piece, rdt, piece.shape)
+            return int8_codec.numpy_cast(t.reshape(rng.shape), dtype)
+
+        if len(staged.pieces) == 1 and staged.pieces[0][0] == target:
+            return piece_to_device(*staged.pieces[0])
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        for rng, piece in staged.pieces:
+            t = piece_to_device(rng, piece)
+            if not shape:                    # scalar: any one source serves
+                out.copy_(t.reshape(()))
+                continue
+            ov = overlap(rng, target)
+            out[tuple(slice(a, b) for a, b in zip(ov.start, ov.stop))] = \
+                t[tuple(slice(a - s, b - s)
+                        for a, b, s in zip(ov.start, ov.stop, rng.start))]
         return out
 
     def leaf_fetcher(self, step_dir, name, rec, np_dtype):
@@ -253,12 +362,16 @@ class RestoreSession:
         return fetch
 
     # -- shard-level ---------------------------------------------------
-    def read_shard(self, step_dir: str, srec: dict) -> np.ndarray:
+    def read_shard(self, step_dir: str, srec: dict, staged: bool = False):
+        """One saved shard, decoded; with `staged`, a ``STAGED`` codec's
+        shard stops before its last transform (``codec.Planes``/
+        ``codec.Quantized``, for the device decode)."""
         if "chunks" in srec:
-            return self.read_chunked_shard(srec)
+            return self.read_chunked_shard(srec, staged)
         # step-scoped: shard file names repeat across steps, and a failed
-        # restore can leave the cache populated for a different step
-        key = f"{step_dir}/{srec['file']}"
+        # restore can leave the cache populated for a different step; a
+        # staged entry is not a decoded one
+        key = f"{step_dir}/{srec['file']}" + ("#staged" if staged else "")
         cached = self.cache.get(key)
         if cached is not None:
             return cached
@@ -279,7 +392,7 @@ class RestoreSession:
                         op="shard_read")
                 else:
                     raw = tier.read_file(rel)
-                rng, arr = unpack_shard(raw)
+                rng, arr = unpack_shard(raw, staged)
                 if fname != srec["file"]:
                     warn("CKPT_W_REPLICA", "primary shard unavailable; "
                          "restored from buddy replica", file=srec["file"])
@@ -291,7 +404,7 @@ class RestoreSession:
         raise last_err if last_err else MissingShardError(
             "unreadable shard", file=srec["file"])
 
-    def read_chunked_shard(self, srec: dict) -> np.ndarray:
+    def read_chunked_shard(self, srec: dict, staged: bool = False):
         """v3/v4/v5 incremental shard: reassemble the encoded payload via
         the prefetch pipeline (each chunk resolved fast tier → slow tier →
         buddy replica, the whole-payload crc as the end-to-end integrity
@@ -309,10 +422,11 @@ class RestoreSession:
         driven by the record's self-describing meta."""
         # meta participates in the key: it drives decode for
         # pre-conditioned and int8 payloads, so records that share chunk
-        # digests but differ in interpretation must not collide
+        # digests but differ in interpretation must not collide; nor may a
+        # staged entry (the device decode's input) and a decoded one
         key = ("cas", tuple(srec["chunks"]), srec["codec"], srec["dtype"],
                tuple(srec["start"]), tuple(srec["stop"]),
-               tuple(sorted((srec.get("meta") or {}).items())))
+               tuple(sorted((srec.get("meta") or {}).items())), staged)
         cached = self.cache.get(key)
         if cached is not None:
             return cached
@@ -353,12 +467,13 @@ class RestoreSession:
             meta = srec.get("meta") or {}
             k = int(meta.get("bp")
                     or codec_mod._np_dtype(srec["dtype"]).itemsize)
-            raw = codec_mod.byteplane_inverse(t, k)
-            arr = raw.view(codec_mod._np_dtype(srec["dtype"])) \
-                .reshape(rng.shape)
+            arr = codec_mod.Planes(t, k, srec["dtype"], rng.shape)
+            if not staged:
+                arr = arr.decode()
         else:
-            arr = codec_mod.decode(payload, srec["codec"], rng.shape,
-                                   srec["dtype"], srec.get("meta", {}))
+            decode = codec_mod.decode_stages if staged else codec_mod.decode
+            arr = decode(payload, srec["codec"], rng.shape, srec["dtype"],
+                         srec.get("meta", {}))
         self.cache.put(key, arr)
         return arr
 

@@ -779,13 +779,29 @@ def iter_snapshot_shards(state):
         yield name, ShardRange((0,) * len(shape), shape), leaf
 
 
-def estimate_snapshot_bytes(state) -> int:
+def device_quantized(name: str, leaf, quantize) -> bool:
+    """Whether the snapshot quantizes this leaf on the device (K5) before
+    the device→host copy: `quantize` (a leaf-name predicate, or None) names
+    the int8-coded leaves, and every tensor among them goes through the
+    kernel (``int8_codec.quantize_blocks`` casts a dtype other than
+    bf16/f32 to f32 on the device first, as the host codec casts it)."""
+    import torch
+    return quantize is not None and isinstance(leaf, torch.Tensor) and \
+        quantize(name)
+
+
+def estimate_snapshot_bytes(state, quantize=None) -> int:
     """Host bytes ONE snapshot of `state` will pin. The persist queue's
     byte-budget admission must run BEFORE the host copy exists, so it
     gates on this metadata-only walk of ``iter_snapshot_shards`` (exact
-    for the snapshot: same entries, same nbytes)."""
-    return sum(int(getattr(data, "nbytes", np.asarray(data).nbytes))
-               for _, _, data in iter_snapshot_shards(state))
+    for the snapshot: same entries, same ``device_quantized`` rule, same
+    nbytes: q and scales for a leaf quantized on the device)."""
+    # a tensor's own nbytes (np.asarray refuses bf16 tensors)
+    return sum(codec_mod.quantized_nbytes(data.numel())
+               if device_quantized(name, data, quantize)
+               else int(data.nbytes) if hasattr(data, "nbytes")
+               else np.asarray(data).nbytes
+               for name, _, data in iter_snapshot_shards(state))
 
 
 def to_host(leaf) -> np.ndarray:
@@ -810,13 +826,31 @@ def to_host(leaf) -> np.ndarray:
     return t.contiguous().cpu().numpy()
 
 
-def snapshot_items(state, pool) -> list:
+def to_host_quantized(leaf) -> codec_mod.Quantized:
+    """K5 on the device, then the device → host copy of q and the scales
+    only (half a bf16 leaf's bytes, a quarter of an f32 leaf's)."""
+    from ..kernels.ckpt_codec import int8_codec
+    q, scales = int8_codec.quantize_blocks(leaf.detach())
+    return codec_mod.Quantized(q.cpu().numpy(), scales.cpu().numpy(),
+                               leaf.numel(), codec_mod.dtype_name(leaf),
+                               tuple(leaf.shape))
+
+
+def snapshot_items(state, pool, quantize=None) -> list:
     """Device → host copy of every ``iter_snapshot_shards`` entry. The
     pipelined engine fans the per-shard host copies out over `pool` (the
     save-time idle restore pool); the serial engine keeps the original
-    inline copies."""
+    inline copies. Leaves that `quantize` names (``device_quantized``)
+    are quantized on the device first and arrive as ``codec.Quantized``."""
     pending = list(iter_snapshot_shards(state))
-    hosts = pool.map_ordered(to_host, [d for _, _, d in pending])
+
+    def host(entry):
+        name, _, data = entry
+        if device_quantized(name, data, quantize):
+            return to_host_quantized(data)
+        return to_host(data)
+
+    hosts = pool.map_ordered(host, pending)
     return [(name, rng, arr)
             for (name, rng, _), arr in zip(pending, hosts)]
 

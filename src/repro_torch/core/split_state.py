@@ -58,6 +58,39 @@ def tree_unflatten(template, leaves):
     return out
 
 
+def init_train_state(model, optimizer, *, seed: int = 0, device=None):
+    """Concrete initial state ``{"params", "opt", "step", "rng"}`` of the
+    JAX ``init_train_state``: ``model.init`` drawn from `seed` on `device`
+    (``None`` → CUDA), the optimizer's state of those params, an int32
+    ``step`` of 0 and the uint32 ``rng`` words of ``PRNGKey(0)`` (zeros)."""
+    import torch
+    params = model.init(seed=seed, device=device)
+    dev = next(t for _, t in leaf_paths(params)).device
+    return {
+        "params": params,
+        "opt": optimizer.init(params),
+        "step": torch.zeros((), dtype=torch.int32, device=dev),
+        # uint32 has few kernels: build the zeros as int32 and reinterpret
+        "rng": torch.zeros(2, dtype=torch.int32, device=dev)
+        .view(torch.uint32),
+    }
+
+
+def abstract_train_state(model, optimizer):
+    """The state's tree as meta tensors (leaf names, shapes and dtypes of
+    the JAX ``abstract_train_state``; no allocation) — a restore
+    target."""
+    import torch
+    params = model.abstract_params()
+    return {
+        "params": params,
+        "opt": optimizer.init(params),
+        "step": torch.empty((), dtype=torch.int32, device="meta"),
+        "rng": torch.empty(2, dtype=torch.int32, device="meta")
+        .view(torch.uint32),
+    }
+
+
 # ---------------------------------------------------------------------------
 # lower half
 # ---------------------------------------------------------------------------

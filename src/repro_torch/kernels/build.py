@@ -1,7 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-for Hopper (``sm_90a``) into its own shared library, loaded with ``ctypes``
+Each ``csrc/<source>.cu`` has a plain C interface and is compiled by
+``nvcc`` for Hopper (``sm_90a``) into its own shared library (one source
+may hold several kernels: ``int8_codec.cu`` holds K5 and K6), loaded with
+``ctypes``
 (no PyTorch headers: a build takes seconds, not minutes). Libraries are
 built at first use from the sources in the checkout, into
 ``build/torch_kernels/`` at the repository root (git-ignored; override with
@@ -26,7 +28,8 @@ SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 _P, _I64, _U32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
 _INT, _F32 = ctypes.c_int, ctypes.c_float
 # kernel → (C entry point, argument types); every entry point returns
-# cudaGetLastError() as an int, and takes PyTorch's stream last
+# cudaGetLastError() as an int, and takes PyTorch's stream last. A kernel's
+# source is csrc/<kernel>.cu unless SOURCES names another.
 SIGNATURES = {
     "gear_scan": ("rt_gear_scan", (_P, _P, _P, _I64, _U32, _U32, _P)),
     "byteplane_fwd": ("rt_byteplane_fwd", (_P, _P, _I64, _I64, _P)),
@@ -36,7 +39,13 @@ SIGNATURES = {
     "flash_attention": ("rt_flash_attention",
                         (_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT,
                          _F32, _F32, _INT, _INT, _INT, _P)),
+    "byteplane_inv": ("rt_byteplane_inv", (_P, _P, _P, _I64, _I64, _I64,
+                                           _P)),
+    "quantize_blocks": ("rt_quantize_blocks", (_P, _P, _P, _I64, _INT, _P)),
+    "dequantize_blocks": ("rt_dequantize_blocks",
+                          (_P, _P, _P, _I64, _INT, _P)),
 }
+SOURCES = {"quantize_blocks": "int8_codec", "dequantize_blocks": "int8_codec"}
 KERNELS = tuple(SIGNATURES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -61,6 +70,11 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
                        "/usr/local/cuda/bin): the CUDA kernels cannot be "
                        "built")
+
+
+def source(kernel: str) -> str:
+    """The stem of the ``csrc/*.cu`` file that holds `kernel`."""
+    return SOURCES.get(kernel, kernel)
 
 
 def _target(name: str) -> tuple:
@@ -96,11 +110,13 @@ def _finish(name: str, so: Path, job) -> str:
 
 
 def build_all(names=KERNELS) -> dict:
-    """Compile every kernel in parallel (one nvcc each); returns
-    {name: nvcc output} (empty for libraries already built)."""
+    """Compile the sources of every kernel in parallel (one nvcc per
+    source); returns {source: nvcc output} (empty for libraries already
+    built)."""
+    srcs = list(dict.fromkeys(source(n) for n in names))
     with _lock:
-        jobs = {n: _start(n) for n in names}
-        return {n: _finish(n, *jobs[n]) for n in names}
+        jobs = {n: _start(n) for n in srcs}
+        return {n: _finish(n, *jobs[n]) for n in srcs}
 
 
 def kernel(name: str):
@@ -109,8 +125,9 @@ def kernel(name: str):
     with _lock:
         fn = _libs.get(name)
         if fn is None:
-            so, job = _start(name)
-            _finish(name, so, job)
+            src = source(name)
+            so, job = _start(src)
+            _finish(src, so, job)
             sym, argtypes = SIGNATURES[name]
             fn = getattr(ctypes.CDLL(str(so)), sym)
             fn.argtypes = list(argtypes)

@@ -1,4 +1,5 @@
-"""Device-side byteplane forward transform — checkpoint codec front-end.
+"""Device-side byteplane transform — checkpoint codec front-end (forward)
+and restore-side decode (inverse).
 
 The lossless byte-plane transpose + per-plane delta of ``core.codec``
 (``byteplane_forward`` is the numpy oracle, re-exported here), run on the
@@ -14,8 +15,14 @@ save dispatch (``core.cdc_scan.GearScanner.scan_transform_encode_async``).
                   device. The CPU tests hold it against the JAX package,
                   and ``chip_smoke.py`` holds the kernel against it.
 
-The inverse transform runs on the host at restore (``core.codec``); its
-device kernel (K4) is not ported yet.
+  inverse_planes  the wrapper of ``csrc/byteplane_inv.cu`` (K4; replaces
+                  the Pallas ``inverse_planes_2d``): the restore's device
+                  decode of a byteplane-coded leaf (``core.restore_path``).
+                  Same dispatch rule as ``forward_planes``;
+  inverse_plain   its plain PyTorch version (per-plane uint8 cumsum, which
+                  wraps mod 256 as the oracle's does).
+
+Launch counts: ``launches`` (K2), ``inverse_launches`` (K4).
 """
 from __future__ import annotations
 
@@ -27,7 +34,10 @@ from .. import build
 
 KERNEL_ITEMSIZES = (1, 2, 4, 8)
 
-launches = 0            # kernel launches since the last reset
+INV_TILE = 4096         # elements per tile of K4 (csrc/byteplane_inv.cu)
+
+launches = 0            # K2 launches since the last reset
+inverse_launches = 0    # K4 launches since the last reset
 _count_lock = threading.Lock()
 
 
@@ -76,3 +86,48 @@ def forward_planes(u8, itemsize: int):
         launches += 1
     return out
 
+
+
+def inverse_plain(u8, itemsize: int):
+    """Plain PyTorch inverse transform of a flat uint8 tensor: per-plane
+    cumulative sum mod 256, transposed back to element order, ragged tail
+    appended unchanged."""
+    import torch
+    n = u8.shape[0]
+    k = int(itemsize)
+    if k <= 0:
+        raise ValueError(f"itemsize must be positive, got {itemsize}")
+    ne = n // k
+    if ne == 0:
+        return u8.clone()
+    x = torch.cumsum(u8[:ne * k].view(k, ne), dim=1, dtype=torch.uint8)
+    return torch.cat([x.t().reshape(-1), u8[ne * k:]])
+
+
+def inverse_planes(u8, itemsize: int):
+    """Inverse transform of a flat contiguous uint8 tensor. CUDA tensor →
+    the K4 kernel on the current stream; CPU tensor → ``inverse_plain``."""
+    import torch
+    if u8.dtype != torch.uint8 or u8.dim() != 1:
+        raise TypeError(f"expected a 1-D uint8 tensor, got {u8.dtype} "
+                        f"{tuple(u8.shape)}")
+    if not u8.is_cuda:
+        return inverse_plain(u8, itemsize)
+    k = int(itemsize)
+    if not 1 <= k <= 8:
+        raise ValueError(f"byteplane inverse kernel takes itemsize 1..8, "
+                         f"got {itemsize}")
+    u8 = u8.contiguous()
+    n = u8.shape[0]
+    out = torch.empty_like(u8)
+    if n == 0:
+        return out
+    ntiles = -(-(n // k) // INV_TILE)
+    scratch = torch.empty(max(ntiles * k, 1), dtype=torch.uint8,
+                          device=u8.device)
+    build.launch("byteplane_inv", u8, u8.data_ptr(), out.data_ptr(),
+                 scratch.data_ptr(), n, k, ntiles * k)
+    global inverse_launches
+    with _count_lock:
+        inverse_launches += 1
+    return out

@@ -15,6 +15,14 @@
   attention_reference    the naive softmax oracle of
                          ``kernels/flash_attention/ref.py`` on (B, H, S, D).
 
+  attention              the differentiable attention the model calls: a
+                         ``torch.autograd.Function`` whose forward is
+                         ``flash_attention`` and whose backward is
+                         ``attention_backward``, PyTorch ops that recompute
+                         the probabilities from q and k per call (the JAX
+                         package differentiates its XLA attention and has no
+                         backward Pallas kernel).
+
 Masks: ``causal`` drops keys after the query; ``window`` W > 0 drops keys
 W or more before it and, without causality, W or more after it. GQA
 indexes kv head ``h // (H // K)``; K/V are never repeated.
@@ -24,6 +32,7 @@ pair.
 """
 from __future__ import annotations
 
+import functools
 import math
 import threading
 
@@ -137,6 +146,72 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     with _count_lock:
         launches += 1
     return out
+
+
+def attention_backward(q, k, v, do, *, causal: bool = True, window: int = 0,
+                       softcap: float = 0.0, scale=None):
+    """(dq, dk, dv) of ``flash_attention_plain`` for the cotangent `do`,
+    in f32 and rounded once to the inputs' dtype. P is recomputed from q
+    and k under the same scale, softcap and mask (nothing of the forward is
+    kept but its inputs); GQA's dk/dv sum over the G query heads of a kv
+    head."""
+    import torch
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qs = q.float().reshape(B, Sq, K, G, D).permute(0, 2, 3, 1, 4) * scale
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]         # (B, K, 1, Sk, D)
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    s = qs @ kf.transpose(-1, -2)                           # (B, K, G, Sq, Sk)
+    t = torch.tanh(s / softcap) if softcap and softcap > 0.0 else None
+    if t is not None:
+        s = t * softcap
+    mask = _mask(Sq, Sk, causal, window, q.device)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    del s
+    dof = do.float().reshape(B, Sq, K, G, D).permute(0, 2, 3, 1, 4)
+    dv = (p.transpose(-1, -2) @ dof).sum(dim=2)             # (B, K, Sk, D)
+    dp = dof @ vf.transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    del p, dp
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    ds = torch.where(mask, ds, 0.0)
+    dq = (ds @ kf) * scale                                  # (B, K, G, Sq, D)
+    dk = (ds.transpose(-1, -2) @ qs).sum(dim=2)             # (B, K, Sk, D)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+@functools.cache
+def _autograd_fn():
+    import torch
+
+    class Attention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, window, softcap, scale):
+            ctx.save_for_backward(q, k, v)
+            ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                          scale=scale)
+            return flash_attention(q, k, v, **ctx.kw)
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v = ctx.saved_tensors
+            return (*attention_backward(q, k, v, do, **ctx.kw),
+                    None, None, None, None)
+
+    return Attention
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              softcap: float = 0.0, scale=None):
+    """Differentiable attention on (B, S, H, D): K8 forward (plain version
+    on the CPU), ``attention_backward`` as its gradient."""
+    return _autograd_fn().apply(q, k, v, causal, window, softcap, scale)
 
 
 def unmasked_pairs(sq: int, sk: int, causal: bool, window: int) -> int:

@@ -10,11 +10,19 @@
                  Pallas kernel in interpret mode, and ``chip_smoke.py``
                  holds the kernel against it on the card.
 
+  rmsnorm        the differentiable norm the model calls: a
+                 ``torch.autograd.Function`` whose forward is
+                 ``rmsnorm_fused`` and whose backward is
+                 ``rmsnorm_backward``, written out in PyTorch ops (the JAX
+                 package differentiates its XLA ``layers.rmsnorm``; it has
+                 no backward Pallas kernel, so neither has the port yet).
+
 The kernel is bound by memory: it reads every input byte once and writes
 every output byte once, ``(2·N·D + D)·itemsize`` bytes in all.
 """
 from __future__ import annotations
 
+import functools
 import threading
 
 from .. import build
@@ -62,3 +70,44 @@ def rmsnorm_fused(x, scale, *, eps: float = EPS):
     with _count_lock:
         launches += 1
     return out
+
+
+def rmsnorm_backward(x, scale, dy, *, eps: float = EPS):
+    """(dx, dscale) of ``rmsnorm_plain`` at (x, scale) for the cotangent
+    `dy`, in f32 and rounded once to each input's dtype. With
+    ``r = rsqrt(mean(x²) + eps)``, ``w = 1 + scale`` and ``g = dy·w``:
+    ``dx = r·g − x·r³·mean(g·x)`` and ``dscale = Σ_rows dy·x·r``."""
+    import torch
+    xf = x.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    dyf = dy.float()
+    g = dyf * (1.0 + scale.float())
+    dx = r * g - xf * r.pow(3) * (g * xf).mean(dim=-1, keepdim=True)
+    dscale = (dyf * (xf * r)).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+@functools.cache
+def _autograd_fn():
+    import torch
+
+    class RMSNorm(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, scale, eps):
+            ctx.save_for_backward(x, scale)
+            ctx.eps = eps
+            return rmsnorm_fused(x, scale, eps=eps)
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, scale = ctx.saved_tensors
+            dx, dscale = rmsnorm_backward(x, scale, dy, eps=ctx.eps)
+            return dx, dscale, None
+
+    return RMSNorm
+
+
+def rmsnorm(x, scale, *, eps: float = EPS):
+    """Differentiable RMSNorm: K7 forward (plain version on the CPU),
+    ``rmsnorm_backward`` as its gradient."""
+    return _autograd_fn().apply(x, scale, eps)

@@ -6,7 +6,8 @@ Two of them run the port's hand-written kernels on a CUDA tensor:
 ``rmsnorm`` is K7 (``kernels.rmsnorm``) and the sequence attentions
 ``attention_full``/``attention_local`` are K8 (``kernels.flash_attention``),
 which computes what the JAX package's Pallas kernel computes for them (q
-scaled in f32; the XLA path scales q in its own dtype). Decode attention
+scaled in f32; the XLA path scales q in its own dtype). Both are
+differentiable: their backward passes are PyTorch ops beside the kernels. Decode attention
 (one query per step) is not a Pallas kernel in the JAX package and stays
 PyTorch ops here. Rounding follows the JAX functions: f32 math where they
 upcast, one rounding to the activation dtype where they cast back, and f32
@@ -16,8 +17,8 @@ from __future__ import annotations
 
 import math
 
-from ..kernels.flash_attention import flash_attention
-from ..kernels.rmsnorm import rmsnorm_fused
+from ..kernels.flash_attention import attention
+from ..kernels.rmsnorm import rmsnorm as rmsnorm_fn
 
 NEG_INF = -1e30
 
@@ -28,7 +29,7 @@ NEG_INF = -1e30
 
 def rmsnorm(x, scale, *, eps=1e-6):
     """The gemma (1 + scale) RMSNorm: the K7 kernel on a CUDA tensor."""
-    return rmsnorm_fused(x, scale, eps=eps)
+    return rmsnorm_fn(x, scale, eps=eps)
 
 
 def layernorm(x, scale, bias, *, eps=1e-5):
@@ -121,16 +122,16 @@ def _softcap(s, cap):
 def attention_full(q, k, v, *, causal, softcap=0.0, scale=None):
     """q: (B, S, H, D); k, v: (B, S, K, D), H % K == 0 → (B, S, H, D): the
     K8 kernel with no window."""
-    return flash_attention(q, k, v, causal=causal, window=0,
-                           softcap=softcap, scale=scale)
+    return attention(q, k, v, causal=causal, window=0, softcap=softcap,
+                     scale=scale)
 
 
 def attention_local(q, k, v, *, window, softcap=0.0, scale=None,
                     causal=True):
     """Sliding-window attention over aligned q/k positions: the K8 kernel
     with the window (both sides when not causal)."""
-    return flash_attention(q, k, v, causal=causal, window=window,
-                           softcap=softcap, scale=scale)
+    return attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                     scale=scale)
 
 
 def attention_decode(q, k, v, *, kv_len, softcap=0.0, scale=None):

@@ -14,11 +14,16 @@ serving checkpoint's leaf names, shapes and dtypes are the JAX package's
 one for one and either package resumes the other's. ``lax.scan`` over a
 stage's repeats becomes a Python loop over the leading axis.
 
+    loss, metrics       = model.loss(params, {"tokens": tokens})
+
 Deviations, each named where it happens: ``decode_step`` writes the new
 key/value into the cache tensors in place and returns the same tree (the
 JAX version returns new arrays); ``init`` draws from a ``torch.Generator``
 (other values than ``jax.random`` from the same seed — move weights across
-with ``convert.params_from_jax``). MoE, SSM and RG-LRU blocks, ``loss`` and
+with ``convert.params_from_jax``); the training forward keeps every
+block's activations for the backward pass (no per-layer remat: the JAX
+``remat_policy`` is a memory knob of its compiled step, and full-width
+gemma3-1b fits the card without it). MoE, SSM and RG-LRU blocks and
 ``encode`` raise ``NotImplementedError``: they come with later slices.
 """
 from __future__ import annotations
@@ -37,9 +42,19 @@ ATTN = (ATTN_GLOBAL, ATTN_LOCAL)
 def _later(what: str):
     raise NotImplementedError(
         f"{what} is not ported yet: the port's Model covers the dense "
-        "attention families (the serving slice); MoE, SSM and RG-LRU blocks "
-        "and the training loss come with the trainer and model-family "
-        "slices (ROADMAP.md)")
+        "attention families (serving and training); MoE, SSM and RG-LRU "
+        "blocks and the encoder come with the model-family slices "
+        "(ROADMAP.md)")
+
+
+def _unstack(tree, repeat: int) -> list:
+    """A stage subtree stacked along its leading axis → one subtree per
+    layer (``unbind`` views: the gradient of each stacked leaf is one
+    ``stack`` of its layers' gradients)."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v, repeat) for k, v in tree.items()}
+        return [{k: subs[k][r] for k in subs} for r in range(repeat)]
+    return tree.unbind(0)
 
 
 def _index(tree, r: int):
@@ -150,11 +165,13 @@ class Model:
         return y
 
     def _block_sequence(self, p, x, kind, ropes, cache_len):
-        """One block over a full sequence: (x, this block's cache)."""
+        """One block over a full sequence: (x, this block's cache; None
+        when `cache_len` is None, as in training)."""
         cfg = self.cfg
         h = apply_norm(p["norm_in"], x, cfg)
         o, (k, v) = self._attn_sequence(p, h, kind, ropes)
-        new_cache = self._build_attn_cache(kind, k, v, cache_len)
+        new_cache = None if cache_len is None else \
+            self._build_attn_cache(kind, k, v, cache_len)
         if cfg.post_norm:
             o = apply_norm(p["norm_post"], o, cfg)
         x = x + o
@@ -231,6 +248,15 @@ class Model:
                 for j in range(len(stage.kinds))}
         return x, caches
 
+    def _run_stages_train(self, params, x, positions):
+        ropes = self._ropes(positions)
+        for si, stage in enumerate(self.stages):
+            for layer_p in _unstack(params[f"stage_{si}"], stage.repeat):
+                for j, kind in enumerate(stage.kinds):
+                    x, _ = self._block_sequence(layer_p[f"b{j}"], x, kind,
+                                                ropes, None)
+        return x
+
     def _run_stages_decode(self, params, cache, x, pos: int):
         import torch
         ropes = self._ropes(torch.tensor([pos], device=x.device))
@@ -248,7 +274,11 @@ class Model:
     # ------------------------------------------------------------------
     def _embed(self, params, tokens):
         import torch
-        x = params["embed"][tokens.long()]
+        import torch.nn.functional as F
+
+        # the gather's backward sums rows in a fixed order on the card
+        # (sorted indices), unlike an index_put_ with accumulation
+        x = F.embedding(tokens.long(), params["embed"])
         if self.cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype,
                                  device=x.device)
@@ -315,7 +345,72 @@ class Model:
         return caches
 
     def loss(self, params, batch):
-        _later("Model.loss (training)")
+        """batch: {"tokens": (B, S) ints} → (loss, {"nll", "loss"}): the
+        mean next-token NLL over the first S−1 positions, through
+        ``chunked_xent`` in 512-token chunks."""
+        import torch
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = self._embed(params, tokens)
+        positions = torch.arange(S, device=x.device)
+        x = self._run_stages_train(params, x, positions)
+        x = apply_norm(params["final_norm"], x, cfg)
+        targets = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], dim=1)
+        mask = torch.cat([torch.ones((B, S - 1), device=x.device),
+                          torch.zeros((B, 1), device=x.device)], dim=1)
+        xent_chunk = S if cfg.seq_shard_resid else 512
+        nll = chunked_xent(x, self._head_weights(params), targets, mask,
+                           softcap=cfg.final_softcap, chunk=xent_chunk)
+        metrics = {"nll": nll.detach(), "loss": nll.detach()}
+        return nll, metrics
 
     def encode(self, params, feats):
         _later("Model.encode (the encoder family)")
+
+
+# ---------------------------------------------------------------------------
+# chunked cross-entropy (never materializes (B, S, V) logits)
+# ---------------------------------------------------------------------------
+
+def _xent_chunk(xb, wf, tb, mb, softcap):
+    """One chunk: (Σ masked NLL, Σ masked lse²) in f32. The (B, chunk, V)
+    logits are the product of the inputs accumulated in f32, as
+    ``preferred_element_type=float32`` asks."""
+    logits = _softcap(xb.float() @ wf, softcap)
+    lse = logits.logsumexp(dim=-1)
+    correct = logits.gather(-1, tb.long()[..., None])[..., 0]
+    return ((lse - correct) * mb).sum(), (lse.square() * mb).sum()
+
+
+def chunked_xent(x, w, targets, mask, *, softcap=0.0, chunk=512,
+                 z_loss=0.0):
+    """Mean masked next-token NLL over sequence chunks
+    (``src/repro/models/model.py::chunked_xent``). x: (B, S, d); w: (d, V);
+    targets/mask: (B, S). Each chunk runs under ``torch.utils.checkpoint``:
+    its (B, chunk, V) f32 logits are recomputed in the backward pass and
+    never saved, as the JAX ``nothing_saveable`` remat does. The f32 copy
+    of `w` is made once for all chunks."""
+    import torch
+    import torch.nn.functional as F
+    from torch.utils.checkpoint import checkpoint
+    B, S, d = x.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    wf = w.float()
+    nll = zacc = torch.zeros((), device=x.device)
+    for c in range(0, S + pad, chunk):
+        n, z = checkpoint(_xent_chunk, x[:, c:c + chunk], wf,
+                          targets[:, c:c + chunk], mask[:, c:c + chunk],
+                          softcap, use_reentrant=False)
+        nll = nll + n
+        zacc = zacc + z
+    denom = torch.clamp(mask.sum(), min=1.0)
+    out = nll / denom
+    if z_loss:
+        out = out + z_loss * zacc / denom
+    return out

@@ -10,9 +10,10 @@ and int32 ``count``, an int32 ``step`` and the two-word uint32 ``rng``.
 Values come from a seeded ``torch.Generator`` on the device: parameters at
 their init scales (normal × the JAX init's scale, norms at their init
 value), and the moments filled with noise of a trained run's magnitude —
-zeros would let the codec compress them to nothing. The forward pass, the
-optimizer update and the trainer are not ported: this is the state they
-would produce, at full width.
+zeros would let the codec compress them to nothing: this is the state a
+trained run holds, at full width, without training it
+(``core.split_state.init_train_state`` gives a fresh run's state, zero
+moments, for the trainer).
 """
 from __future__ import annotations
 

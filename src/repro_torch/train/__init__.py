@@ -1,2 +1,1 @@
-"""Step functions of the port (serving so far; training comes with the
-trainer slice)."""
+"""Step functions and the training loop of the port."""

@@ -1,7 +1,9 @@
 """The port's device encode (gear scan K1, byteplane forward K2, RLE
-emission K3 + glue) against the JAX package's Pallas kernels run in
-interpret mode, byte for byte (tolerance 0: candidates, transformed bytes
-and encoded streams are the dedup keyspace).
+emission K3 + glue) and decode (byteplane inverse K4), and its int8 codec
+(quantizer K5, dequantizer K6), against the JAX package's Pallas kernels
+run in interpret mode and the numpy oracles, byte for byte (tolerance 0:
+candidates, transformed bytes and encoded streams are the dedup keyspace;
+restored leaves and int8 payloads are bit-exact).
 
 On this CPU machine every wrapper takes its plain PyTorch version (the
 tensors lie on the CPU), which is exactly the arithmetic the CUDA kernels
@@ -18,12 +20,16 @@ from repro.core import cdc_scan as jscan
 from repro.core import codec as jcodec
 from repro.core.cdc import GearChunker as JGearChunker
 from repro.kernels.ckpt_codec import byteplane as jbp
+from repro.kernels import ckpt_codec as jck
 from repro.kernels.ckpt_codec import entropy as jent
 from repro_torch.core import cdc_scan as tscan
+from repro_torch.core import codec as tcodec
 from repro_torch.kernels.ckpt_codec import byteplane as tbp
 from repro_torch.kernels.ckpt_codec import entropy as tent
+from repro_torch.kernels.ckpt_codec import int8_codec as tic
 
 B = jcodec.ENTROPY_BLOCK
+BLK = tic.BLOCK
 W = jscan.WINDOW
 
 
@@ -124,6 +130,138 @@ def test_byteplane_forward_matches_pallas_interpret(itemsize, size):
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(
         got, jcodec.byteplane_forward(u8, itemsize))
+
+
+# ---------------------------------------------------------------------------
+# K4 — byteplane inverse
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("itemsize", [1, 2, 4, 8])
+@pytest.mark.parametrize("size", [0, 1, 7, 4096, 65_541, 200_003])
+def test_byteplane_inverse_matches_pallas_interpret(itemsize, size):
+    """Ragged tails (size % itemsize != 0) and ne = 0 included."""
+    u8 = _payload(size, "planes" if size > 8 else "random", seed=size + 1)
+    ref = np.asarray(jbp.inverse_pallas(jnp.asarray(u8), itemsize=itemsize,
+                                        interpret=True))
+    got = tbp.inverse_planes(_t(u8), itemsize).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(
+        got, jcodec.byteplane_inverse(u8, itemsize))
+    np.testing.assert_array_equal(
+        tbp.inverse_planes(tbp.forward_planes(_t(u8), itemsize),
+                           itemsize).numpy(), u8)
+
+
+# ---------------------------------------------------------------------------
+# K5/K6 — int8 block quantizer and dequantizer
+# ---------------------------------------------------------------------------
+
+def _int8_input(kind, n, seed):
+    """f32 values of `kind`: ``ties`` holds blocks of amax 127 (scale 1.0)
+    and 254 (scale 2.0) whose quotients are exact k + 0.5 ties; ``zeros``
+    is all-zero blocks but one; ``tiny`` has subnormal scales."""
+    rng = np.random.default_rng(seed)
+    if kind == "normal":
+        x = rng.standard_normal(n) * 0.02
+    elif kind == "ties":
+        x = rng.integers(-253, 254, n) * 0.5
+        x[::BLK] = 127.0
+        x = np.where(np.arange(n) // BLK % 2, x * 2.0, x)
+    elif kind == "zeros":
+        x = np.zeros(n)
+        x[n // 2] = 0.375
+    else:
+        x = rng.standard_normal(n) * 1e-39
+    return x.astype(np.float32)
+
+
+def _as_dtype(x, dtype):
+    """f32 numpy → (torch tensor, jnp array) of `dtype` with equal bits."""
+    t = torch.from_numpy(x).to(getattr(torch, dtype))
+    if dtype == "float32":
+        return t, jnp.asarray(x)
+    return t, jnp.asarray(t.view(torch.int16).numpy().view(jnp.bfloat16))
+
+
+def _bits(t):
+    return t.view({torch.float32: torch.int32,
+                   torch.bfloat16: torch.int16}[t.dtype]).numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros", "tiny"])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 4096, 65_537])
+def test_int8_codec_matches_pallas_interpret_and_oracle(dtype, kind, n):
+    x = _int8_input(kind, n, seed=n)
+    tx, jx = _as_dtype(x, dtype)
+    q, s = tic.quantize_blocks(tx)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert q.numel() == -(-n // BLK) * BLK
+    oq, os_ = tcodec.quantize_int8(np.asarray(jx))
+    np.testing.assert_array_equal(q.numpy(), oq)
+    np.testing.assert_array_equal(_bits(s), os_.view(np.int32))
+    # XLA on the CPU flushes subnormals to zero (the oracle, whose bytes
+    # the checkpoint holds, and the port keep them), and it folds
+    # ``amax / 127`` into ``amax · (1/127)``: the interpret-mode scales are
+    # the oracle's to one ulp (test_kernels.py allows 1e-7), and q is the
+    # oracle's wherever the scales agree — in every block of the tie and
+    # zero inputs, whose scales are exactly 1, 2 or 1.0
+    jax_too = kind != "tiny"
+    if jax_too:
+        jq, js = jck.quantize_blocks(jx, interpret=True)
+        jq, js = np.asarray(jq), np.asarray(js)
+        np.testing.assert_allclose(js, os_, rtol=1.2e-7, atol=0)
+        same = np.repeat(js == os_, BLK)
+        assert kind == "normal" or same.all()
+        np.testing.assert_array_equal(q.numpy()[same], jq[same])
+        assert np.abs(q.numpy().astype(np.int32) - jq).max() <= 1
+    for out in ("float32", "bfloat16"):
+        got = tic.dequantize_blocks(q, s, n, getattr(torch, out))
+        assert got.shape == (n,)
+        if jax_too:
+            ref = jck.dequantize_blocks(jnp.asarray(oq), jnp.asarray(os_),
+                                        n=n, out_dtype=getattr(jnp, out),
+                                        interpret=True)
+            np.testing.assert_array_equal(
+                _bits(got), np.asarray(ref).view(_bits(got).dtype))
+        host = tcodec.Quantized(oq, os_, n, out, (n,)).decode()
+        np.testing.assert_array_equal(
+            _bits(got), np.asarray(host).view(_bits(got).dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float16", "float64", "int32", "uint32",
+                                   "int8", "bool"])
+@pytest.mark.parametrize("n", [1, 257, 4096])
+def test_int8_codec_wrappers_take_any_leaf_dtype(dtype, n):
+    """A leaf of another dtype than bf16/f32 crosses to f32 before K5 and
+    back from K6's f32 after it, as the host codec's casts: the same q,
+    scales and restored bits (int32 steps, the uint32 rng key, wide ints
+    near the type's edge)."""
+    rng = np.random.default_rng(n)
+    if dtype == "bool":
+        x = rng.integers(0, 2, n).astype(bool)
+    elif dtype in ("float16", "float64"):
+        x = (rng.standard_normal(n) * 3).astype(dtype)
+    else:
+        info = np.iinfo(dtype)
+        x = rng.integers(info.min, info.max, n, endpoint=True).astype(dtype)
+        x[:: 7] = info.max
+    t = torch.from_numpy(x.view(np.int32) if dtype == "uint32" else x)
+    if dtype == "uint32":
+        t = t.view(torch.uint32)
+    q, s = tic.quantize_blocks(t)
+    oq, os_ = tcodec.quantize_int8(x)
+    np.testing.assert_array_equal(q.numpy(), oq)
+    np.testing.assert_array_equal(s.numpy().view(np.int32),
+                                  os_.view(np.int32))
+    got = tic.dequantize_blocks(q, s, n, t.dtype)
+    assert got.dtype == t.dtype and got.shape == (n,)
+    with np.errstate(invalid="ignore"):     # 2**31 past int32's edge
+        host = tcodec.Quantized(oq, os_, n, dtype, (n,)).decode()
+    if dtype == "uint32":
+        got = got.view(torch.int32)
+        host = host.view(np.int32)
+    np.testing.assert_array_equal(got.numpy(), host)
 
 
 # ---------------------------------------------------------------------------

@@ -165,3 +165,182 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, B, S, H, K,
     torch.testing.assert_close(got.float(),
                                fa.flash_attention_plain(q, k, v, **kw).float(),
                                atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["random", "zeros", "runs"])
+@pytest.mark.parametrize("size", [0, 1, 7, 4097, 65_541, 1_000_003])
+def test_byteplane_inverse_kernel_matches_plain(cuda, kind, size):
+    """K4 byte for byte, ragged tails and ne = 0 included; K4 of K2 is the
+    identity."""
+    u8 = torch.from_numpy(_payload(size, kind, size + 1)).to(cuda)
+    for k in (1, 2, 4, 8):
+        before = bp.inverse_launches
+        got = bp.inverse_planes(u8, k)
+        assert bp.inverse_launches == before + (1 if size else 0)
+        assert torch.equal(got, bp.inverse_plain(u8, k))
+        assert torch.equal(bp.inverse_planes(bp.forward_planes(u8, k), k),
+                           u8)
+    np.testing.assert_array_equal(bp.inverse_planes(u8, 2).cpu().numpy(),
+                                  codec.byteplane_inverse(u8.cpu().numpy(),
+                                                          2))
+
+
+def _int8_input(kind, n, g, dev):
+    if kind == "ties":      # amax 127 → scale 1.0: exact k + 0.5 quotients
+        x = torch.randint(-253, 254, (n,), generator=g, device=dev) * 0.5
+        x[::256] = 127.0
+        return x
+    if kind == "zeros":
+        x = torch.zeros(n, device=dev)
+        x[n // 2] = 0.375
+        return x
+    scale = 0.02 if kind == "normal" else 1e-39
+    return torch.randn(n, generator=g, device=dev) * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros", "tiny"])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 65_537, 1_000_003])
+def test_int8_kernels_match_plain_and_oracle(cuda, dtype, kind, n):
+    """K5 byte for byte on q and bit for bit on the scales, K6 bit for bit
+    on both output dtypes, and both equal to the host codec."""
+    from repro_torch.kernels.ckpt_codec import int8_codec as ic
+    g = torch.Generator(device=cuda)
+    g.manual_seed(n)
+    x = _int8_input(kind, n, g, cuda).to(dtype)
+    before = ic.quantize_launches
+    q, s = ic.quantize_blocks(x)
+    assert ic.quantize_launches == before + 1
+    pq, ps = ic.quantize_plain(x)
+    assert torch.equal(q, pq)
+    assert torch.equal(s.view(torch.int32), ps.view(torch.int32))
+    from repro_torch.core.save_path import to_host
+    oq, os_ = codec.quantize_int8(to_host(x))
+    np.testing.assert_array_equal(q.cpu().numpy(), oq)
+    np.testing.assert_array_equal(s.cpu().numpy().view(np.int32),
+                                  os_.view(np.int32))
+    for out in (torch.float32, torch.bfloat16):
+        before = ic.dequantize_launches
+        got = ic.dequantize_blocks(q, s, n, out)
+        assert ic.dequantize_launches == before + 1
+        ref = ic.dequantize_plain(q, s, n, out)
+        assert torch.equal(_bits(got), _bits(ref))
+        host = codec.Quantized(oq, os_, n, str(out).split(".")[-1],
+                               (n,)).decode()
+        np.testing.assert_array_equal(
+            to_host(got).view(f"i{got.element_size()}"),
+            np.asarray(host).view(f"i{got.element_size()}"))
+
+
+def _bits(t):
+    return t.view({torch.float32: torch.int32,
+                   torch.bfloat16: torch.int16}[t.dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float16", "float64", "int32", "uint32",
+                                   "bool"])
+@pytest.mark.parametrize("n", [1, 257, 65_537])
+def test_int8_kernels_take_any_leaf_dtype(cuda, dtype, n):
+    """A leaf of another dtype than bf16/f32 crosses to f32 on the card
+    before K5 and from K6's f32 after it, to the host codec's q, scales and
+    restored bits (ints up to their type's edge)."""
+    from repro_torch.core.save_path import to_host
+    from repro_torch.kernels.ckpt_codec import int8_codec as ic
+    rng = np.random.default_rng(n)
+    if dtype == "bool":
+        x = rng.integers(0, 2, n).astype(bool)
+    elif dtype in ("float16", "float64"):
+        x = (rng.standard_normal(n) * 3).astype(dtype)
+    else:
+        info = np.iinfo(dtype)
+        x = rng.integers(info.min, info.max, n, endpoint=True).astype(dtype)
+        x[::7] = info.max
+    t = torch.from_numpy(x.view(np.int32) if dtype == "uint32" else x)
+    t = (t.view(torch.uint32) if dtype == "uint32" else t).to(cuda)
+    before = (ic.quantize_launches, ic.dequantize_launches)
+    q, s = ic.quantize_blocks(t)
+    oq, os_ = codec.quantize_int8(x)
+    np.testing.assert_array_equal(q.cpu().numpy(), oq)
+    np.testing.assert_array_equal(s.cpu().numpy().view(np.int32),
+                                  os_.view(np.int32))
+    got = ic.dequantize_blocks(q, s, n, t.dtype)
+    assert (ic.quantize_launches, ic.dequantize_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert got.dtype == t.dtype and got.is_cuda
+    with np.errstate(invalid="ignore"):     # 2**31 past int32's edge
+        host = codec.Quantized(oq, os_, n, dtype, (n,)).decode()
+    np.testing.assert_array_equal(to_host(got).view(host.dtype), host)
+
+
+def _split_shards(state):
+    """Every leaf of two or more rows saved as two shards."""
+    from repro_torch.core.elastic import ShardRange
+    from repro_torch.core.split_state import leaf_paths
+    for name, leaf in leaf_paths(state):
+        shape = tuple(leaf.shape)
+        if not shape or shape[0] < 2:
+            yield name, ShardRange((0,) * len(shape), shape), leaf
+            continue
+        cut = shape[0] // 3 + 1
+        for a, b in ((0, cut), (cut, shape[0])):
+            yield (name, ShardRange((a,) + (0,) * (len(shape) - 1),
+                                    (b,) + shape[1:]), leaf[a:b])
+
+
+@pytest.mark.parametrize("codec_name", ["int8", "byteplane-rle"])
+def test_device_decode_of_split_shards_matches_host(cuda, codec_name,
+                                                    tmp_path, monkeypatch):
+    """Leaves saved as two shards each, in bf16, f32, int32 and uint32,
+    decode shard by shard on the card (one K4/K6 launch per shard) into
+    the host route's bits, and the K5 route saves the host route's
+    manifest."""
+    from repro_torch.core import save_path
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.core.policy import (CheckpointPolicy, ChunkingPolicy,
+                                         CodecPolicy, DurabilityPolicy,
+                                         PipelinePolicy)
+    from repro_torch.core.split_state import leaf_paths
+    from repro_torch.core.storage import Tier, TieredStore
+    from repro_torch.kernels.ckpt_codec import int8_codec as ic
+    monkeypatch.setattr(save_path, "iter_snapshot_shards", _split_shards)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    state = {"params": {"w": torch.randn(64, 96, generator=g, device=cuda)
+                        .to(torch.bfloat16),
+                        "b": torch.randn(8, 100, generator=g, device=cuda)},
+             "rng": torch.tensor([7, -9], dtype=torch.int32, device=cuda)
+             .view(torch.uint32),
+             "step": torch.tensor(5, dtype=torch.int32, device=cuda)}
+
+    def manager(name, **kw):
+        return CheckpointManager(TieredStore(Tier("fast", tmp_path / name)),
+                                 CheckpointPolicy(
+            mode="incremental",
+            chunking=ChunkingPolicy(scheme="cdc", chunk_size=4096),
+            pipeline=PipelinePolicy(io_threads=4),
+            durability=DurabilityPolicy(keepalive_s=60.0),
+            codec=CodecPolicy(codec=codec_name, params_codec=codec_name,
+                              **kw)), device=cuda)
+
+    dev, host = manager("dev"), manager("host", device_precondition=False)
+    dev.save(state, 1)
+    host.save(state, 1)
+    leaves = dev.load_manifest(1)["leaves"]
+    assert leaves == host.load_manifest(1)["leaves"]
+    shards = sum(len(r["shards"]) for r in leaves.values())
+    assert shards == 7
+    before = (bp.inverse_launches, ic.dequantize_launches)
+    got, _ = dev.restore(state)
+    launched = (bp.inverse_launches - before[0],
+                ic.dequantize_launches - before[1])
+    assert launched == ((0, shards) if codec_name == "int8"
+                        else (shards, 0))
+    ref, _ = host.restore(state)
+    assert (bp.inverse_launches, ic.dequantize_launches) == \
+        (before[0] + launched[0], before[1] + launched[1])
+    for (name, a), (_, b) in zip(leaf_paths(got), leaf_paths(ref)):
+        assert a.is_cuda and a.dtype == b.dtype, name
+        assert np.array_equal(save_path.to_host(a), save_path.to_host(b)), \
+            name
+    dev.close()
+    host.close()

@@ -168,5 +168,6 @@ def test_unported_families_raise():
     cfg = dataclasses.replace(reduced(get_config(ARCH)), pattern=(SSM,))
     with pytest.raises(NotImplementedError, match="not ported"):
         Model(cfg)
+    # the training loss is ported (test_torch_train.py); the encoder is not
     with pytest.raises(NotImplementedError):
-        Model(reduced(get_config(ARCH))).loss({}, {})
+        Model(reduced(get_config(ARCH))).encode({}, None)
