@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                # everything, as documented below
     python3 chip_smoke.py --parity-only  # build + kernel parity, no main path
+    python3 chip_smoke.py --k8-only      # build, K7/K8 parity, K8's times at
+                                         #   the path's shapes, no main path
     python3 chip_smoke.py --profile      # + device time of save 2 / restore,
                                          #   of the uninterrupted serve and
                                          #   of one training step
@@ -17,9 +19,12 @@
    streams and the K2+K1 ``scan_transform_async`` route against the numpy
    oracles. K7 (RMSNorm) and K8 (flash attention) against their plain
    versions in f32 and bf16 over the ``tests/test_kernels.py`` sweeps and
-   the serving path's shapes, within that file's tolerances; the reduced
-   gemma3-1b model on the card (kernels) against the same model on the
-   CPU (plain versions) in f32.
+   the serving path's shapes, within that file's tolerances, and K8 at the
+   bf16 kernel's edges (``ATTN_EDGES``: every head dim, ragged S, Sq != Sk,
+   windows on and beside tile edges, the training shapes; bf16 at the
+   launcher's block_q and at 64 and 128), two launches bit-equal; the
+   reduced gemma3-1b model on the card (kernels) against the same model
+   on the CPU (plain versions) in f32.
 3. The checkpoint path: the full gemma3-1b training state (bf16 params,
    f32 AdamW moments; 321 leaves, ~10.0 GB) on the card, saved by
    ``CheckpointManager`` as an incremental CDC round (params through the
@@ -48,7 +53,9 @@
    all have launched in the phase.
 6. Prints one JSON line of per-kernel numbers (CUDA-event times at each
    path's largest shapes, bounds from the bytes or operations each kernel
-   needs, the plain version's and a library call's time), one JSON line of
+   needs, the plain version's and a library call's time; K8 also at the
+   serving and training shapes of ``K8_SHAPES`` with TFLOP/s, both
+   block_q and its ptxas registers and spills), one JSON line of
    end-to-end numbers, and last the ``{"ok": true, "device": ...}`` line.
    Any failure exits non-zero.
 
@@ -344,15 +351,39 @@ def int8_parity(dev, g):
 # order than the plain versions')
 RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
-# (B, Sq, H, K, D, causal, window, softcap): the test_kernels.py sweeps,
-# then the serving path's prefill shapes (local and global layers)
+# (B, Sq, Sk, H, K, D, causal, window, softcap): the test_kernels.py
+# sweeps, then the serving path's prefill shapes (local and global layers)
 ATTN_CASES = [
-    (1, 64, 4, 4, 32, True, 0, 0.0), (2, 128, 4, 1, 16, True, 0, 0.0),
-    (1, 96, 8, 2, 64, True, 0, 0.0), (1, 60, 2, 2, 16, True, 0, 0.0),
-    (1, 80, 4, 2, 32, True, 16, 0.0), (1, 80, 4, 2, 32, True, 0, 30.0),
-    (1, 80, 4, 2, 32, False, 24, 0.0), (1, 80, 4, 2, 32, False, 0, 0.0),
-    (8, 2048, 4, 1, 256, True, 512, 0.0), (8, 2048, 4, 1, 256, True, 0, 0.0),
+    (1, 64, 64, 4, 4, 32, True, 0, 0.0),
+    (2, 128, 128, 4, 1, 16, True, 0, 0.0),
+    (1, 96, 96, 8, 2, 64, True, 0, 0.0), (1, 60, 60, 2, 2, 16, True, 0, 0.0),
+    (1, 80, 80, 4, 2, 32, True, 16, 0.0),
+    (1, 80, 80, 4, 2, 32, True, 0, 30.0),
+    (1, 80, 80, 4, 2, 32, False, 24, 0.0),
+    (1, 80, 80, 4, 2, 32, False, 0, 0.0),
+    (8, 2048, 2048, 4, 1, 256, True, 512, 0.0),
+    (8, 2048, 2048, 4, 1, 256, True, 0, 0.0),
 ]
+# the bf16 kernel's edges: every head dim, ragged S, Sq != Sk, windows on
+# and beside the 64-key tile edges, the training step's shapes (inputs
+# from a generator of their own, so that K7's and the cases above keep
+# their inputs)
+ATTN_EDGES = [
+    *[(1, 200, 200, 4, 2, d, True, 0, 0.0) for d in (16, 32, 64, 128, 256)],
+    *[(2, 150, 150, 4, 1, d, False, 0, 20.0) for d in (16, 64, 256)],
+    (1, 1000, 1000, 4, 1, 256, True, 0, 0.0),
+    (1, 2047, 2047, 4, 1, 256, True, 512, 0.0),
+    (1, 100, 300, 4, 1, 128, False, 0, 0.0),
+    (1, 300, 100, 4, 2, 64, True, 0, 0.0),
+    (2, 130, 700, 4, 1, 256, False, 65, 0.0),
+    *[(1, 1100, 1100, 4, 1, 256, True, w, 0.0)
+      for w in (63, 64, 65, 128, 511, 513)],
+    (4, 1024, 1024, 4, 1, 256, True, 0, 0.0),
+    (4, 1024, 1024, 4, 1, 256, True, 512, 0.0),
+]
+# two launches at this shape must be bit-equal (the training resume is
+# bit-exact only if K8 does not depend on scheduling)
+ATTN_DETERMINISM = (2, 1024, 4, 1, 256)
 # (rows shape, D): the test_kernels.py sweep, then the path's widths
 RMS_CASES = [((16,), 64), ((37,), 96), ((3, 5), 128), ((8 * 2048,), 1152),
              ((8 * 2048, 4), 256), ((8, 1), 1152)]
@@ -366,9 +397,11 @@ def model_kernel_parity(dev):
     from repro_torch.kernels.rmsnorm import ops as rn
     g = torch.Generator(device=dev)
     g.manual_seed(7)
+    g_edges = torch.Generator(device=dev)
+    g_edges.manual_seed(8)
 
-    def randn(*shape, dtype):
-        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    def randn(*shape, dtype, gen=g):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -383,24 +416,42 @@ def model_kernel_parity(dev):
                      f"{err} > {RMS_TOL[name]}")
             worst[f"rmsnorm_{name}"] = max(worst.get(f"rmsnorm_{name}", 0),
                                            err)
-        for B, S, H, K, D, causal, window, cap in ATTN_CASES:
-            q = randn(B, S, H, D, dtype=dtype)
-            k = randn(B, S, K, D, dtype=dtype)
-            v = randn(B, S, K, D, dtype=dtype)
+        cases = [(c, g) for c in ATTN_CASES] + \
+            [(c, g_edges) for c in ATTN_EDGES]
+        for (B, Sq, Sk, H, K, D, causal, window, cap), gen in cases:
+            q = randn(B, Sq, H, D, dtype=dtype, gen=gen)
+            k = randn(B, Sk, K, D, dtype=dtype, gen=gen)
+            v = randn(B, Sk, K, D, dtype=dtype, gen=gen)
             kw = dict(causal=causal, window=window, softcap=cap)
-            err = (fa.flash_attention(q, k, v, **kw).float()
-                   - fa.flash_attention_plain(q, k, v, **kw).float()) \
-                .abs().max().item()
-            if not err <= ATTN_TOL[name]:
-                fail(f"K8 flash_attention {name} B={B} S={S} H={H} K={K} "
-                     f"D={D} {kw}: max abs err {err} > {ATTN_TOL[name]}")
-            key = f"flash_attention_{name}"
-            worst[key] = max(worst.get(key, 0), err)
+            ref = fa.flash_attention_plain(q, k, v, **kw).float()
+            # bf16: the launcher's choice of block_q and both forced
+            for bq in ((0, 64, 128) if dtype == torch.bfloat16 else (0,)):
+                err = (fa.flash_attention(q, k, v, block_q=bq, **kw).float()
+                       - ref).abs().max().item()
+                if not err <= ATTN_TOL[name]:
+                    fail(f"K8 flash_attention {name} B={B} Sq={Sq} Sk={Sk} "
+                         f"H={H} K={K} D={D} {kw} block_q={bq}: max abs "
+                         f"err {err} > {ATTN_TOL[name]}")
+                key = f"flash_attention_{name}"
+                worst[key] = max(worst.get(key, 0), err)
+            del q, k, v, ref
         torch.cuda.synchronize()
+    B, S, H, K, D = ATTN_DETERMINISM
+    q, k, v = (randn(B, S, n, D, dtype=torch.bfloat16, gen=g_edges)
+               for n in (H, K, K))
+    for window in (0, 512):
+        a, b = (fa.flash_attention(q, k, v, causal=True, window=window)
+                for _ in range(2))
+        if not torch.equal(bits(a), bits(b)):
+            fail(f"K8 is not deterministic: two launches at {(B, S, H, K, D)}"
+                 f" window {window} differ")
+    del q, k, v, a, b
     torch.cuda.empty_cache()
     say(f"parity: K7 over {len(RMS_CASES)} shapes and K8 over "
-        f"{len(ATTN_CASES)} shapes/masks, f32 and bf16, within tolerance; "
-        f"worst max abs err {json.dumps(worst)}")
+        f"{len(ATTN_CASES) + len(ATTN_EDGES)} shapes/masks, f32 and bf16 "
+        f"(bf16 at block_q "
+        f"auto/64/128), within tolerance; K8 bit-equal over two launches at "
+        f"{ATTN_DETERMINISM}; worst max abs err {json.dumps(worst)}")
     worst["model_logits"] = model_reference(dev)
     return worst
 
@@ -769,10 +820,93 @@ def serving(dev, card: str, profile: bool = False):
     return stats, launches
 
 
+# K8's timed shapes: (B, S, H, K, D, window), all causal: the serving
+# prefill's global and local layers and the training step's
+K8_SHAPES = {"serve": (8, 2048, 4, 1, 256, 0),
+             "serve_window512": (8, 2048, 4, 1, 256, 512),
+             "train": (4, 1024, 4, 1, 256, 0),
+             "train_window512": (4, 1024, 4, 1, 256, 512)}
+
+
+def k8_shapes(dev, g) -> dict:
+    """K8 (bf16) at each ``K8_SHAPES`` entry: CUDA-event ms at the
+    launcher's choice of block_q and at each forced one, the bound from
+    the unmasked pairs' flops (and the bytes: q, k, v read, out written
+    once), the achieved TFLOP/s, and the library call's ms
+    (``F.scaled_dot_product_attention``: ``is_causal``, or a band mask
+    for the window)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    bf = torch.bfloat16
+    out = {}
+    for name, (B, S, H, K, D, window) in K8_SHAPES.items():
+        q = torch.randn((B, S, H, D), generator=g, device=dev).to(bf)
+        k = torch.randn((B, S, K, D), generator=g, device=dev).to(bf)
+        v = torch.randn((B, S, K, D), generator=g, device=dev).to(bf)
+        flops = 4 * D * B * H * fa.unmasked_pairs(S, S, True, window)
+        moved = (2 * q.numel() + k.numel() + v.numel()) * 2
+        by_ops = flops / BF16_FLOPS > moved / HBM_BYTES_PER_S
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                                window=window),
+                     iters=20, warmup=2)
+        by_bq = {str(bq): time_ms(
+            lambda: fa.flash_attention(q, k, v, causal=True, window=window,
+                                       block_q=bq), iters=20, warmup=2)
+            for bq in fa.BLOCK_QS}
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        if window:
+            band = fa._mask(S, S, True, window, dev)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=True), iters=20,
+                warmup=2)
+        else:
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), iters=20,
+                warmup=2)
+        out[name] = {
+            "shape": [B, S, H, K, D], "window": window, "ms": ms,
+            "ms_by_block_q": by_bq, "library_ms": lib,
+            "bound_ms": max(flops / BF16_FLOPS,
+                            moved / HBM_BYTES_PER_S) * 1e3,
+            "bound_by": "operations" if by_ops else "bytes",
+            "flops": flops, "tflops": flops / (ms * 1e-3) / 1e12}
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
+def k8_ptxas() -> dict:
+    """Registers a thread and spill bytes of each D = 256 instantiation of
+    the bf16 kernel, from the ptxas report that the build keeps beside the
+    library (with block_q 128, ``setmaxnreg`` then moves the consumers to
+    240 registers and the producer to 24)."""
+    import re
+
+    from repro_torch.kernels import build
+    log = build.ptxas_log("flash_attention")
+    text = log.read_text() if log.exists() else ""
+    out = {}
+    for m in re.finditer(
+            r"Compiling entry function '[^']*flash_wgmma_kernelILi(\d+)"
+            r"ELi(\d)ELb([01])E[^']*'.*?(\d+) bytes stack frame, (\d+) "
+            r"bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) "
+            r"registers", text, flags=re.S):
+        d, nwg, cap, stack, st, ld, regs = (int(x) for x in m.groups())
+        if d == 256:
+            out[f"block_q{64 * nwg}{'_softcap' if cap else ''}"] = {
+                "registers": regs, "spill_bytes": st + ld,
+                "stack_bytes": stack}
+    return out
+
+
+
 def model_kernel_table(dev, launches: dict) -> list:
     """K7 and K8 at the serving path's largest shapes (bf16): the block
     norm over the prefill's 8·2048 rows of 1152, and a global layer's
-    causal attention (B 8, S 2048, H 4, K 1, D 256)."""
+    causal attention (B 8, S 2048, H 4, K 1, D 256); K8 also at the other
+    ``K8_SHAPES`` (``k8_shapes``) and with its ptxas counts."""
     import torch
     import torch.nn.functional as F
 
@@ -803,45 +937,42 @@ def model_kernel_table(dev, launches: dict) -> list:
                                                  eps=rn.EPS), iters=50),
         "shape": [n, d], "dtype": "bfloat16"})
     del x
-    # K8
-    B, S, H, K, D = 8, 2048, 4, 1, 256
+    # K8: the serving prefill's causal (global) layer is the row's main
+    # shape; the other path shapes add keys of their own
+    B, S, H, K, D = K8_SHAPES["serve"][:5]
     q = torch.randn((B, S, H, D), generator=g, device=dev).to(bf)
     k = torch.randn((B, S, K, D), generator=g, device=dev).to(bf)
     v = torch.randn((B, S, K, D), generator=g, device=dev).to(bf)
     err = (fa.flash_attention(q, k, v, causal=True).float()
            - fa.flash_attention_plain(q, k, v, causal=True).float()) \
         .abs().max().item()
-    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-    pairs = B * H * fa.unmasked_pairs(S, S, True, 0)
-    flops = 4 * D * pairs
-    moved = (2 * q.numel() + k.numel() + v.numel()) * 2
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                       iters=3)
+    del q, k, v
+    shapes = k8_shapes(dev, g)
+    serve = shapes["serve"]
     row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:88",
         "launches": launches["flash_attention"], "max_abs_err": err,
         "tolerance": ATTN_TOL["bfloat16"],
-        "ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
-                      iters=5),
-        "plain_ms": time_ms(lambda: fa.flash_attention_plain(
-            q, k, v, causal=True), iters=3),
-        "bound_ms": max(flops / BF16_FLOPS, moved / HBM_BYTES_PER_S) * 1e3,
-        "bound_by": "operations" if flops / BF16_FLOPS
-        > moved / HBM_BYTES_PER_S else "bytes",
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), iters=5),
+        "ms": serve["ms"], "plain_ms": plain_ms,
+        "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+        "library_ms": serve["library_ms"],
         "shape": [B, S, H, K, D], "dtype": "bfloat16", "causal": True,
-        "window": 0, "flops": flops}
-    # the local layers' shape: window 512, blocks past the window skipped;
-    # the library yardstick takes an explicit band mask
-    band = fa._mask(S, S, True, 512, dev)
-    row["ms_window512"] = time_ms(lambda: fa.flash_attention(
-        q, k, v, causal=True, window=512), iters=5)
-    row["library_ms_window512"] = time_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
-                                               enable_gqa=True), iters=5)
-    row["bound_ms_window512"] = 4 * D * B * H * fa.unmasked_pairs(
-        S, S, True, 512) / BF16_FLOPS * 1e3
+        "window": 0, "flops": serve["flops"]}
+    for name, suffix in (("serve_window512", "_window512"),
+                         ("train", "_train"),
+                         ("train_window512", "_train_window512")):
+        for key in ("ms", "library_ms", "bound_ms"):
+            row[key + suffix] = shapes[name][key]
+    for name, suffix in (("serve", ""), ("serve_window512", "_window512"),
+                         ("train", "_train"),
+                         ("train_window512", "_train_window512")):
+        row["tflops" + suffix] = shapes[name]["tflops"]
+    row["ms_by_block_q"] = {n: sh["ms_by_block_q"] for n, sh in shapes.items()}
+    row["ptxas"] = k8_ptxas()
     rows.append(row)
     torch.cuda.empty_cache()
     return rows
@@ -1156,6 +1287,16 @@ def main() -> int:
     (out_dir / "chip_smoke_ptxas.log").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     dev = torch.device("cuda")
+    if "--k8-only" in sys.argv[1:]:
+        model_kernel_parity(dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(11)
+        say(json.dumps({"k8": k8_shapes(dev, g), "ptxas": k8_ptxas()}))
+        say(card)
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     parity(dev)
     model_kernel_parity(dev)
     if "--parity-only" in sys.argv[1:]:

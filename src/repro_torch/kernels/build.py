@@ -39,13 +39,17 @@ SIGNATURES = {
     "flash_attention": ("rt_flash_attention",
                         (_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT,
                          _F32, _F32, _INT, _INT, _INT, _P)),
+    "flash_attention_bq": ("rt_flash_attention_bq",
+                           (_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT,
+                            _INT, _F32, _F32, _INT, _INT, _INT, _INT, _P)),
     "byteplane_inv": ("rt_byteplane_inv", (_P, _P, _P, _I64, _I64, _I64,
                                            _P)),
     "quantize_blocks": ("rt_quantize_blocks", (_P, _P, _P, _I64, _INT, _P)),
     "dequantize_blocks": ("rt_dequantize_blocks",
                           (_P, _P, _P, _I64, _INT, _P)),
 }
-SOURCES = {"quantize_blocks": "int8_codec", "dequantize_blocks": "int8_codec"}
+SOURCES = {"quantize_blocks": "int8_codec", "dequantize_blocks": "int8_codec",
+           "flash_attention_bq": "flash_attention"}
 KERNELS = tuple(SIGNATURES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -81,6 +85,12 @@ def _target(name: str) -> tuple:
     src = SRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
     return src, build_dir() / f"{name}-{digest}.so"
+
+
+def ptxas_log(kernel: str) -> Path:
+    """Where the build of `kernel`'s source keeps nvcc's report (``-Xptxas
+    -v``: registers, shared memory and spills of each kernel)."""
+    return _target(source(kernel))[1].with_suffix(".log")
 
 
 def _start(name: str):

@@ -28,7 +28,10 @@ W or more before it and, without causality, W or more after it. GQA
 indexes kv head ``h // (H // K)``; K/V are never repeated.
 
 The kernel is bound by operations: 4·D flops per unmasked (query, key)
-pair.
+pair. ``tile_plan`` states its tile arithmetic (which key tiles each query
+tile visits, which of them need the per-element mask, the longest-first
+launch order) for the CPU tests; ``csrc/flash_attention.cu`` carries the
+same formulas.
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ from .. import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
+BLOCK_QS = (64, 128)    # query rows a CTA of the bf16 kernel
+BLOCK_K = 64            # keys a tile of the bf16 kernel
 
 launches = 0            # kernel launches since the last reset
 _count_lock = threading.Lock()
@@ -110,10 +115,12 @@ def _aligned(t):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, scale=None):
+                    softcap: float = 0.0, scale=None, block_q: int = 0):
     """q: (B, Sq, H, D); k, v: (B, Sk, K, D) → (B, Sq, H, D). CUDA tensors
     → the K8 kernel on the current stream; CPU tensors →
-    ``flash_attention_plain``."""
+    ``flash_attention_plain``. `block_q` (bf16 only): the query rows a
+    CTA takes, one of ``BLOCK_QS``; 0 (what the model passes) leaves it to
+    the launcher's choice per shape (``chip_smoke.py`` times both)."""
     import torch
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -131,6 +138,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if D not in HEAD_DIMS:
         raise ValueError(f"attention kernel takes head_dim in {HEAD_DIMS}, "
                          f"got {D}")
+    if block_q and block_q not in BLOCK_QS:
+        raise ValueError(f"block_q takes 0 or {BLOCK_QS}, got {block_q}")
     if not (k.is_cuda and v.is_cuda):
         raise ValueError("q, k and v must lie on one CUDA device")
     q, k, v = (_aligned(t) for t in (q, k, v))
@@ -138,10 +147,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if out.numel() == 0 or Sk == 0:
         return out.zero_()
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    build.launch("flash_attention", q, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, K, D,
-                 float(scale), float(softcap or 0.0), int(bool(causal)),
-                 int(window or 0), int(q.dtype == torch.bfloat16))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Sk, H, K, D, float(scale), float(softcap or 0.0),
+            int(bool(causal)), int(window or 0),
+            int(q.dtype == torch.bfloat16))
+    if block_q:
+        build.launch("flash_attention_bq", q, *args, int(block_q))
+    else:
+        build.launch("flash_attention", q, *args)
     global launches
     with _count_lock:
         launches += 1
@@ -228,3 +241,59 @@ def unmasked_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
                 hi = min(hi, i + window)
         total += max(hi - lo, 0)
     return total
+
+
+def key_range(qt: int, sq: int, sk: int, causal: bool, window: int, bq: int,
+              bk: int) -> tuple:
+    """Key tiles [kb, ke) that some row of query tile `qt` (rows
+    [qt·bq, min(qt·bq + bq, sq))) may see; ke <= kb when none."""
+    q0 = qt * bq
+    q_last = min(q0 + bq, sq) - 1
+    ke = -(-sk // bk)
+    if causal:
+        ke = min(ke, q_last // bk + 1)
+    elif window > 0:
+        ke = min(ke, (q_last + window - 1) // bk + 1)
+    kb = (q0 - window + 1) // bk if window > 0 and q0 - window + 1 > 0 else 0
+    return kb, ke
+
+
+def tile_masked(q0: int, q_last: int, k0: int, sk: int, causal: bool,
+                window: int, bk: int) -> bool:
+    """Whether key tile [k0, k0 + bk) needs the per-element mask for query
+    rows [q0, q_last]: the ragged tail, the causal diagonal and the
+    window's edges do; an interior tile holds no masked pair."""
+    if k0 + bk > sk:
+        return True
+    if causal and k0 + bk - 1 > q0:
+        return True
+    if window > 0:
+        if q_last - k0 >= window:
+            return True
+        if not causal and k0 + bk - 1 - q0 >= window:
+            return True
+    return False
+
+
+def tile_plan(sq: int, sk: int, causal: bool, window: int, bq: int,
+              bk: int = BLOCK_K) -> tuple:
+    """The bf16 kernel's tile arithmetic: (tiles, order). ``tiles[qt]`` is
+    the list of (key tile, masked) that query tile `qt` visits, in the
+    kernel's order; ``order`` the launch order of the query tiles (rank r
+    of ``blockIdx.y`` takes ``order[r]``): non-increasing visited tiles,
+    the later tile first among equals. With `bq` 128 a CTA loads the key
+    tiles of this plan, and each of its two consumer warpgroups computes
+    those of its own 64-row tile, ``tile_plan(.., 64, bk)``, with that
+    plan's mask flags."""
+    nq = -(-sq // bq)
+    tiles = []
+    for qt in range(nq):
+        q0 = qt * bq
+        q_last = min(q0 + bq, sq) - 1
+        kb, ke = key_range(qt, sq, sk, causal, window, bq, bk)
+        tiles.append([(kt, tile_masked(q0, q_last, kt * bk, sk, causal,
+                                       window, bk))
+                      for kt in range(kb, ke)])
+    order = sorted(range(nq), key=lambda t: (-len(tiles[t]), -t))
+    return tiles, order
+

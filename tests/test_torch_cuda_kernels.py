@@ -167,6 +167,61 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, B, S, H, K,
                                atol=tol, rtol=0)
 
 
+# (B, Sq, Sk, H, K, D, causal, window, softcap): the bf16 kernel's edges:
+# every head dim (with and without the softcap), ragged S, Sq != Sk,
+# windows on and beside the 64-key tile edges, the training step's shape
+ATTN_EDGES = [
+    *[(1, 200, 200, 4, 2, d, True, 0, 0.0) for d in fa.HEAD_DIMS],
+    *[(2, 150, 150, 4, 1, d, False, 0, 20.0) for d in fa.HEAD_DIMS],
+    *[(1, 257, 257, 2, 1, d, False, 70, 0.0) for d in fa.HEAD_DIMS],
+    (1, 1000, 1000, 4, 1, 256, True, 0, 0.0),
+    (1, 2047, 2047, 4, 1, 256, True, 0, 0.0),
+    (1, 2047, 2047, 4, 1, 256, True, 512, 0.0),
+    (1, 100, 300, 4, 1, 128, False, 0, 0.0),
+    (1, 300, 100, 4, 2, 64, True, 0, 0.0),
+    (2, 130, 700, 4, 1, 256, False, 65, 0.0),
+    (1, 700, 130, 4, 1, 256, True, 600, 0.0),
+    *[(1, 1100, 1100, 4, 1, 256, True, w, 0.0)
+      for w in (63, 64, 65, 128, 511, 513)],
+    *[(1, 600, 600, 2, 1, 128, False, w, 0.0) for w in (63, 64, 65, 128)],
+    (4, 1024, 1024, 4, 1, 256, True, 0, 0.0),
+    (4, 1024, 1024, 4, 1, 256, True, 512, 0.0),
+]
+
+
+def _attn_inputs(dev, B, Sq, Sk, H, K, D, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return (torch.randn((B, s, n, D), generator=g, device=dev)
+            .to(torch.bfloat16) for s, n in ((Sq, H), (Sk, K), (Sk, K)))
+
+
+@pytest.mark.parametrize("block_q", [0, 64, 128])
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D,causal,window,softcap", ATTN_EDGES)
+def test_flash_attention_bf16_edges_match_plain(cuda, block_q, B, Sq, Sk, H,
+                                                K, D, causal, window,
+                                                softcap):
+    q, k, v = _attn_inputs(cuda, B, Sq, Sk, H, K, D, Sq + Sk + D)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, block_q=block_q, **kw)
+    assert fa.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(),
+                               fa.flash_attention_plain(q, k, v, **kw).float(),
+                               atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("window", [0, 512])
+def test_flash_attention_bf16_is_deterministic(cuda, window):
+    """Two launches on the same inputs are bit-equal (no atomics: the
+    training resume is bit-exact)."""
+    q, k, v = _attn_inputs(cuda, 2, 1024, 1024, 4, 1, 256, 5)
+    a = fa.flash_attention(q, k, v, causal=True, window=window)
+    b = fa.flash_attention(q, k, v, causal=True, window=window)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
 @pytest.mark.parametrize("kind", ["random", "zeros", "runs"])
 @pytest.mark.parametrize("size", [0, 1, 7, 4097, 65_541, 1_000_003])
 def test_byteplane_inverse_kernel_matches_plain(cuda, kind, size):
