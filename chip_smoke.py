@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py                # everything, as documented below
     python3 chip_smoke.py --parity-only  # build + kernel parity, no main path
+    python3 chip_smoke.py --k7-only      # build, K7's routes against the
+                                         #   plain version, K7's times at the
+                                         #   path's shapes, no main path
     python3 chip_smoke.py --k8-only      # build, K7/K8 parity, K8's times at
                                          #   the path's shapes, no main path
     python3 chip_smoke.py --profile      # + device time of save 2 / restore,
@@ -19,7 +22,9 @@
    streams and the K2+K1 ``scan_transform_async`` route against the numpy
    oracles. K7 (RMSNorm) and K8 (flash attention) against their plain
    versions in f32 and bf16 over the ``tests/test_kernels.py`` sweeps and
-   the serving path's shapes, within that file's tolerances, and K8 at the
+   the serving path's shapes, within that file's tolerances; K7 with each
+   route forced (``RMS_ROUTE_CASES``: the path's shapes, D 37, D 8192, a
+   misaligned view), its vector routes bit-equal; K8 at the
    bf16 kernel's edges (``ATTN_EDGES``: every head dim, ragged S, Sq != Sk,
    windows on and beside tile edges, the training shapes; bf16 at the
    launcher's block_q and at 64 and 128), two launches bit-equal; the
@@ -53,7 +58,8 @@
    all have launched in the phase.
 6. Prints one JSON line of per-kernel numbers (CUDA-event times at each
    path's largest shapes, bounds from the bytes or operations each kernel
-   needs, the plain version's and a library call's time; K8 also at the
+   needs, the plain version's and a library call's time; K7 also at every
+   shape of ``K7_SHAPES`` with the L2 cold, each route forced; K8 also at the
    serving and training shapes of ``K8_SHAPES`` with TFLOP/s, both
    block_q and its ptxas registers and spills), one JSON line of
    end-to-end numbers, and last the ``{"ok": true, "device": ...}`` line.
@@ -165,7 +171,14 @@ class DeviceProfile:
         out = {"wall_s": wall_s, "device_busy_s": busy,
                "idle_share": 1.0 - busy / wall_s,
                "top": [{"name": k[:80], "count": c, "ms": us / 1e3}
-                       for k, c, us in rows[:12]]}
+                       for k, c, us in rows[:12]],
+               # the model kernels' device time, every route summed
+               "model_kernels": {
+                   name: {"count": sum(c for k, c, _ in rows if tag in k),
+                          "ms": sum(us for k, _, us in rows if tag in k)
+                          / 1e3}
+                   for name, tag in (("rmsnorm", "rms_"),
+                                     ("flash_attention", "flash_"))}}
         if self.host:
             ops = sorted(((e.key, e.count, e.self_cpu_time_total)
                           for e in self.prof.key_averages()
@@ -388,6 +401,94 @@ ATTN_DETERMINISM = (2, 1024, 4, 1, 256)
 RMS_CASES = [((16,), 64), ((37,), 96), ((3, 5), 128), ((8 * 2048,), 1152),
              ((8 * 2048, 4), 256), ((8, 1), 1152)]
 
+# K7's routes, each forced where it can run: the path's (rows, D) (serving
+# prefill, training step, decode), a ragged last stage, chameleon-34b's D
+# 8192 and D 37; then a view at an odd offset (inputs from a generator of
+# their own, so that the cases above keep theirs)
+RMS_ROUTE_CASES = [(16_384, 1152), (65_536, 256), (16_384, 256),
+                   (4096, 1152), (4096, 256), (8, 1152), (32, 256), (8, 256),
+                   (16_384 + 3, 1152), (300, 8192), (37, 37)]
+RMS_MISALIGNED = [(16_384, 1152), (37, 37)]
+
+
+def rms_flip_report(x, s, got, eps: float) -> str:
+    """Where the kernel and the plain version differ most: the element,
+    its f64-exact value and the two roundings."""
+    import torch
+    from repro_torch.kernels.rmsnorm import ops as rn
+    ref = rn.rmsnorm_plain(x, s, eps=eps)
+    diff = (got.float() - ref.float()).abs().reshape(-1)
+    i = int(diff.argmax())
+    d = x.shape[-1]
+    row = x.reshape(-1, d)[i // d].double()
+    exact = (row[i % d] / torch.sqrt(row.square().mean() + eps)
+             * (1.0 + s.double()[i % d])).item()
+    return (f"element {i} (row {i // d}, col {i % d}): f64-exact {exact!r}, "
+            f"kernel {got.reshape(-1)[i].item()!r}, plain "
+            f"{ref.reshape(-1)[i].item()!r}")
+
+
+def k7_route_parity(dev) -> dict:
+    """Each K7 route, forced, against ``rmsnorm_plain`` (``RMS_TOL``); the
+    stream and warp routes bit-equal on the same rows; two launches
+    bit-equal; the launch count one up per call."""
+    import torch
+
+    from repro_torch.kernels.rmsnorm import ops as rn
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    worst, checks = {}, 0
+
+    def check(x, s, route, name, what):
+        nonlocal checks
+        before = rn.launches
+        got = rn.rmsnorm_fused(x, s, route=route)
+        if rn.launches != before + 1:
+            fail(f"K7 {what} route {route}: launch count {before} -> "
+                 f"{rn.launches}")
+        err = (got.float() - rn.rmsnorm_plain(x, s).float()).abs().max()
+        err = err.item()
+        if not err <= RMS_TOL[name]:
+            fail(f"K7 {what} route {route}: max abs err {err} > "
+                 f"{RMS_TOL[name]}; {rms_flip_report(x, s, got, rn.EPS)}")
+        worst[f"{route or 'auto'}_{name}"] = max(
+            worst.get(f"{route or 'auto'}_{name}", 0.0), err)
+        checks += 1
+        return got
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for n, d in RMS_ROUTE_CASES:
+            x = torch.randn((n, d), generator=g, device=dev).to(dtype)
+            s = (torch.randn((d,), generator=g, device=dev) * 0.1).to(dtype)
+            vector = (d * x.element_size()) % 16 == 0
+            outs = {}
+            for route in (None, *rn.ROUTES):
+                if route in ("stream", "warp") and not vector:
+                    continue
+                outs[route] = check(x, s, route, name, f"{name} {n} x {d}")
+            if vector:
+                ref = bits(outs["stream"])
+                if not torch.equal(bits(outs["warp"]), ref):
+                    fail(f"K7 {name} {n} x {d}: routes stream and warp "
+                         "differ in bits")
+                again = rn.rmsnorm_fused(x, s, route="stream")
+                if not torch.equal(bits(again), ref):
+                    fail(f"K7 {name} {n} x {d}: two stream launches differ")
+            del x, s, outs
+        for n, d in RMS_MISALIGNED:
+            flat = torch.randn((n * d + 1,), generator=g, device=dev)
+            x = flat.to(dtype)[1:].view(n, d)
+            s = (torch.randn((d,), generator=g, device=dev) * 0.1).to(dtype)
+            check(x, s, None, name, f"{name} misaligned {n} x {d}")
+            check(x, s, "scalar", name, f"{name} misaligned {n} x {d}")
+    torch.cuda.synchronize()
+    say(f"parity: K7 routes forced at {len(RMS_ROUTE_CASES)} shapes and "
+        f"{len(RMS_MISALIGNED)} misaligned views, f32 and bf16: {checks} "
+        f"checks within tolerance; stream/warp bit-equal, two "
+        f"launches bit-equal; worst {json.dumps(worst)}")
+    return worst
+
 
 def model_kernel_parity(dev):
     """K7 and K8 against their plain versions on the card, f32 and bf16."""
@@ -413,7 +514,8 @@ def model_kernel_parity(dev):
                    - rn.rmsnorm_plain(x, s).float()).abs().max().item()
             if not err <= RMS_TOL[name]:
                 fail(f"K7 rmsnorm {name} rows={rows} D={d}: max abs err "
-                     f"{err} > {RMS_TOL[name]}")
+                     f"{err} > {RMS_TOL[name]}; "
+                     f"{rms_flip_report(x, s, rn.rmsnorm_fused(x, s), rn.EPS)}")
             worst[f"rmsnorm_{name}"] = max(worst.get(f"rmsnorm_{name}", 0),
                                            err)
         cases = [(c, g) for c in ATTN_CASES] + \
@@ -452,6 +554,7 @@ def model_kernel_parity(dev):
         f"(bf16 at block_q "
         f"auto/64/128), within tolerance; K8 bit-equal over two launches at "
         f"{ATTN_DETERMINISM}; worst max abs err {json.dumps(worst)}")
+    worst["k7_routes"] = k7_route_parity(dev)
     worst["model_logits"] = model_reference(dev)
     return worst
 
@@ -902,13 +1005,142 @@ def k8_ptxas() -> dict:
 
 
 
+# K7's timed shapes, bf16: (rows, D) of gemma3-1b's norms (a prefill of
+# 8 × 2048 tokens, a training forward of 4 × 1024, a decode step of 8
+# sequences: the block norms, the q norms of 4 heads, the k norms of one)
+K7_SHAPES = {"prefill_block": (16_384, 1152), "prefill_q": (65_536, 256),
+             "prefill_k": (16_384, 256), "train_block": (4096, 1152),
+             "train_q": (16_384, 256), "train_k": (4096, 256),
+             "decode_block": (8, 1152), "decode_q": (32, 256),
+             "decode_k": (8, 256)}
+L2_BYTES = 50e6                    # H100 L2
+
+
+def cold_iters(n: int, d: int, itemsize: int = 2) -> int:
+    """Calls of a norm of (n, d) to time in one graph: 200 at the decode
+    shapes (launch-bound); otherwise enough that the calls move 40 times
+    the L2, so that the outputs still in the L2 when the graph ends (at
+    most its size) are under 5% of the bytes written."""
+    if n < 1024:
+        return 200
+    return max(20, math.ceil(40 * L2_BYTES / (2 * n * d * itemsize)))
+
+
+def rotating_inputs(dev, g, n: int, d: int, dtype=None) -> list:
+    """Input sets of (n, d) for timing with the L2 cold: enough sets that
+    the inputs span four times the L2 (views of one tensor), each read
+    again only after the others."""
+    import torch
+    dtype = dtype or torch.bfloat16
+    per = n * d * torch.tensor([], dtype=dtype).element_size()
+    sets = max(3, math.ceil(4 * L2_BYTES / per))
+    big = torch.randn((sets * n, d), generator=g, device=dev).to(dtype)
+    return [big[i * n:(i + 1) * n] for i in range(sets)]
+
+
+def time_cold_ms(fn, sets: list, iters: int) -> float:
+    """Mean CUDA-event ms of ``fn(x)`` over `iters` eager calls, x rotating
+    over `sets` (the last set warms up): host launch cost included."""
+    import torch
+    fn(sets[-1])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    k = len(sets) - 1
+    start.record()
+    for i in range(iters):
+        fn(sets[i % k])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_graph_ms(fn, sets: list, iters: int) -> float:
+    """Device ms a call of ``fn(x)`` inside one CUDA graph of `iters` calls,
+    x rotating over `sets` and each call writing an output of its own (all
+    kept alive through the capture, so that the graph's pool gives no two
+    calls one buffer): the L2 cold for inputs and outputs, no host launch
+    cost between calls; the median of five replays."""
+    import torch
+    fn(sets[-1])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    k = len(sets) - 1
+    with torch.cuda.graph(graph):
+        outs = [fn(sets[i % k]) for i in range(iters)]
+    del outs
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return sorted(times)[2]
+
+
+def k7_shapes(dev, g, kernels: dict | None = None,
+              plain: bool = True) -> dict:
+    """K7 (bf16) at each ``K7_SHAPES`` entry, the L2 cold, device ms a call
+    inside a CUDA graph: the launcher's plan (``ms``), each function of
+    `kernels` (name → fn(x, scale); default: each route forced where it
+    runs), the plain version, the library call (``F.rms_norm`` with weight
+    1 + scale) and a copy of x (``clone``: the same bytes read and
+    written); the bound from the bytes at the data sheet's rate; and at
+    the decode shapes the eager ms a call of K7 and of the library call as
+    well (host launch cost included: what the decode step pays)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import ops as rn
+    bf = torch.bfloat16
+    if kernels is None:
+        kernels = {r: (lambda x, s, r=r: rn.rmsnorm_fused(x, s, route=r))
+                   for r in ("stream", "warp")}
+    out = {}
+    for name, (n, d) in K7_SHAPES.items():
+        sets = rotating_inputs(dev, g, n, d)
+        sc = (torch.randn((d,), generator=g, device=dev) * 0.1).to(bf)
+        w = 1.0 + sc
+        iters = cold_iters(n, d)
+        lib = (lambda x: F.rms_norm(x, (d,), weight=w, eps=rn.EPS))
+        row = {"rows": n, "d": d,
+               "route": rn.launch_plan(n, d, 2, True,
+                                       sms=rn._sms(dev)).route,
+               "bound_ms": (2 * n * d + d) * 2 / HBM_BYTES_PER_S * 1e3,
+               "ms": time_graph_ms(lambda x: rn.rmsnorm_fused(x, sc), sets,
+                                   iters),
+               "library_ms": time_graph_ms(lib, sets, iters),
+               "copy_ms": time_graph_ms(lambda x: x.clone(), sets, iters)}
+        if plain:
+            row["plain_ms"] = time_graph_ms(
+                lambda x: rn.rmsnorm_plain(x, sc), sets, max(iters // 5, 10))
+        row["ms_by"] = {k: time_graph_ms(lambda x, f=f: f(x, sc), sets,
+                                         iters)
+                        for k, f in kernels.items()}
+        if n < 1024:
+            row["call_ms"] = time_cold_ms(lambda x: rn.rmsnorm_fused(x, sc),
+                                          sets, iters)
+            row["library_call_ms"] = time_cold_ms(lib, sets, iters)
+        row["pct_of_bound"] = 100 * row["bound_ms"] / row["ms"]
+        out[name] = row
+        del sets
+    torch.cuda.empty_cache()
+    return out
+
+
 def model_kernel_table(dev, launches: dict) -> list:
     """K7 and K8 at the serving path's largest shapes (bf16): the block
     norm over the prefill's 8·2048 rows of 1152, and a global layer's
-    causal attention (B 8, S 2048, H 4, K 1, D 256); K8 also at the other
-    ``K8_SHAPES`` (``k8_shapes``) and with its ptxas counts."""
+    causal attention (B 8, S 2048, H 4, K 1, D 256); K7 also at the other
+    ``K7_SHAPES`` (``k7_shapes``), K8 at the other ``K8_SHAPES``
+    (``k8_shapes``) and with its ptxas counts."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.rmsnorm import ops as rn
@@ -916,27 +1148,26 @@ def model_kernel_table(dev, launches: dict) -> list:
     g.manual_seed(11)
     bf = torch.bfloat16
     rows = []
-    # K7
-    n, d = 8 * 2048, 1152
+    # K7: the serving prefill's block norm is the row's main shape; the
+    # other path shapes add keys of their own (``k7_shapes``)
+    n, d = K7_SHAPES["prefill_block"]
     x = torch.randn((n, d), generator=g, device=dev).to(bf)
     sc = (torch.randn((d,), generator=g, device=dev) * 0.1).to(bf)
-    w = 1.0 + sc
     err = (rn.rmsnorm_fused(x, sc).float()
            - rn.rmsnorm_plain(x, sc).float()).abs().max().item()
+    del x
+    k7 = k7_shapes(dev, g)
+    main = k7["prefill_block"]
     rows.append({
         "name": "rmsnorm", "route": "cuda",
         "source": "src/repro_torch/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:24",
         "launches": launches["rmsnorm"], "max_abs_err": err,
-        "tolerance": RMS_TOL["bfloat16"],
-        "ms": time_ms(lambda: rn.rmsnorm_fused(x, sc), iters=50),
-        "plain_ms": time_ms(lambda: rn.rmsnorm_plain(x, sc), iters=20),
-        "bound_ms": (2 * n * d + d) * 2 / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
-        "library_ms": time_ms(lambda: F.rms_norm(x, (d,), weight=w,
-                                                 eps=rn.EPS), iters=50),
-        "shape": [n, d], "dtype": "bfloat16"})
-    del x
+        "tolerance": RMS_TOL["bfloat16"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": "bytes", "library_ms": main["library_ms"],
+        "shape": [n, d], "dtype": "bfloat16",
+        "launches_train": launches.get("rmsnorm_train"), "shapes": k7})
     # K8: the serving prefill's causal (global) layer is the row's main
     # shape; the other path shapes add keys of their own
     B, S, H, K, D = K8_SHAPES["serve"][:5]
@@ -1287,6 +1518,16 @@ def main() -> int:
     (out_dir / "chip_smoke_ptxas.log").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     dev = torch.device("cuda")
+    if "--k7-only" in sys.argv[1:]:
+        k7_route_parity(dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(11)
+        say(json.dumps({"k7": k7_shapes(dev, g)}))
+        say(card)
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--k8-only" in sys.argv[1:]:
         model_kernel_parity(dev)
         g = torch.Generator(device=dev)
@@ -1320,7 +1561,8 @@ def main() -> int:
         **launches, **{k: train_launches[k] for k in codec}})
     del embed
     torch.cuda.empty_cache()
-    rows += model_kernel_table(dev, serve_launches)
+    rows += model_kernel_table(dev, {
+        **serve_launches, "rmsnorm_train": train_launches["rmsnorm"]})
     stats["rans_stage"] = rans_stage_ms(dev)
     say(card)
     say(json.dumps({"main_path": stats, "serving": serve_stats,

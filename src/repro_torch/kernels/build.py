@@ -35,7 +35,7 @@ SIGNATURES = {
     "byteplane_fwd": ("rt_byteplane_fwd", (_P, _P, _I64, _I64, _P)),
     "rle_emit": ("rt_rle_emit", (_P, _P, _P, _I64, _I64, _P)),
     "rmsnorm": ("rt_rmsnorm", (_P, _P, _P, _I64, _I64, _F32, _INT, _INT,
-                               _P)),
+                               _INT, _INT, _INT, _INT, _INT, _INT, _P)),
     "flash_attention": ("rt_flash_attention",
                         (_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT,
                          _F32, _F32, _INT, _INT, _INT, _P)),
@@ -148,11 +148,17 @@ def kernel(name: str):
 
 def launch(name: str, t, *args):
     """Launch kernel `name` on PyTorch's current stream of `t`'s device
-    (arguments before the stream: `args`); raises if the launch failed."""
+    (arguments before the stream: `args`); raises if the launch failed.
+    Switches the current device only where `t` lies on another one (the
+    host cost of a launch counts on the decode path)."""
     import torch
-    with torch.cuda.device(t.device):
-        err = kernel(name)(*args, torch.cuda.current_stream(t.device)
-                           .cuda_stream)
+    fn = _libs.get(name) or kernel(name)
+    index = t.device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch "
                            f"(cudaError {err})")

@@ -142,6 +142,66 @@ def test_rmsnorm_kernel_matches_plain(cuda, dtype, tol, rows, d):
                                atol=tol, rtol=0)
 
 
+# K7's routes at the path's shapes (serving prefill, training step,
+# decode), a ragged last stage, D 8192 and D 37
+RMS_ROUTE_SHAPES = [(16_384, 1152), (65_536, 256), (16_384, 256),
+                    (4096, 1152), (4096, 256), (8, 1152), (32, 256),
+                    (8, 256), (16_384 + 3, 1152), (300, 8192), (37, 37)]
+
+
+def _rms_inputs(cuda, n, d, dtype, offset=0):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(n * 7 + d + offset)
+    x = torch.randn((n * d + offset,), generator=g, device=cuda).to(dtype)
+    s = (torch.randn((d,), generator=g, device=cuda) * 0.1).to(dtype)
+    return x[offset:].view(n, d), s
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("route", [None, *rn.ROUTES])
+@pytest.mark.parametrize("n,d", RMS_ROUTE_SHAPES)
+def test_rmsnorm_routes_match_plain(cuda, n, d, route, dtype, tol):
+    x, s = _rms_inputs(cuda, n, d, dtype)
+    if route not in (None, "scalar") and (d * x.element_size()) % 16:
+        with pytest.raises(ValueError):
+            rn.rmsnorm_fused(x, s, route=route)
+        return
+    before = rn.launches
+    got = rn.rmsnorm_fused(x, s, route=route)
+    assert rn.launches == before + 1
+    torch.testing.assert_close(got.float(), rn.rmsnorm_plain(x, s).float(),
+                               atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n,d", [(16_384, 1152), (8, 256), (37, 37)])
+def test_rmsnorm_misaligned_view_matches_plain(cuda, n, d, dtype, tol):
+    x, s = _rms_inputs(cuda, n, d, dtype, offset=1)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    for route in (None, "scalar"):
+        got = rn.rmsnorm_fused(x, s, route=route)
+        torch.testing.assert_close(got.float(),
+                                   rn.rmsnorm_plain(x, s).float(), atol=tol,
+                                   rtol=0)
+    with pytest.raises(ValueError):
+        rn.rmsnorm_fused(x, s, route="stream")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", RMS_ROUTE_SHAPES[:-1])
+def test_rmsnorm_vector_routes_are_bit_equal(cuda, n, d, dtype):
+    """stream and warp sum a row in one order: the same bits, launch
+    after launch (training resumes bit-exact on that)."""
+    x, s = _rms_inputs(cuda, n, d, dtype)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    ref = rn.rmsnorm_fused(x, s, route="stream").view(bits)
+    for route in ("stream", "warp", None):
+        got = rn.rmsnorm_fused(x, s, route=route)
+        assert torch.equal(got.view(bits), ref), route
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("B,S,H,K,D,causal,window,softcap", [
