@@ -11,6 +11,8 @@
     python3 chip_smoke.py --profile      # + device time of save 2 / restore,
                                          #   of the uninterrupted serve and
                                          #   of one training step
+    python3 chip_smoke.py --reliability-only  # build, parity, the
+                                         #   reliability phase alone
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
@@ -36,7 +38,7 @@
    fused K2+K1+K3 dispatch, moments through the segmented K1 scan), ~10% of
    the leaves changed, saved again asynchronously, restored onto the card
    and compared bit for bit. The launch counts of K1-K3 must be > 0, and
-   two leaves re-encoded by the host oracle must give the same chunk
+   a params leaf re-encoded by the host oracle must give the same chunk
    digests.
 4. The serving path: ``repro_torch.launch.serve.run`` serves full-width
    gemma3-1b in bf16 (8 requests, 2048-token prompts, 64 new tokens)
@@ -56,14 +58,36 @@
    False``): manifests and CAS objects must be identical; the params
    restored through K6 must equal the host decode bit for bit. K1-K8 must
    all have launched in the phase.
-6. Prints one JSON line of per-kernel numbers (CUDA-event times at each
+6. The reliability plane: a ``WeightPublisher`` on a ``CheckpointManager``
+   (the checkpoint round's policy, retain 1) over a fast/slow store
+   wrapped in a seeded ``FaultPlane`` publishes full-width gemma3-1b
+   params (bf16, seed 99) twice. Round 0 runs with the fast tier full
+   (persistent ENOSPC on its object writes) and latency on the slow tier,
+   and must commit degraded; round 1 changes every 10th leaf under a
+   transient EIO and a silent bit-rot on two named fast-tier object
+   writes (chunks the round re-promotes from the slow tier) and the same
+   latency; each round's fired sites must match its schedule. The
+   inspector (``--verify``) must exit 1, ``scrub`` must heal the rot from
+   the slow tier, the inspector must then exit 0, and round 1 restored
+   onto the card (K4) must equal the published params bit for bit.
+   ``serve.run(..., weight_sync=<fast root>)`` with the serving phase's
+   traffic must flip to round 1, serve params bit-equal to it and give
+   the tokens of a direct loop (prefill with the initial params, decode
+   with round 1's); a second subscriber's delta sync from round 0 to
+   round 1 may pull no more than the changed leaves' new chunks plus 1
+   MiB. K1-K4, K7 and K8 must launch. One ``{"reliability": ...}`` JSON
+   line carries the round, inspector, scrub, restore, sync and serve
+   times and bytes.
+7. Prints one JSON line of per-kernel numbers (CUDA-event times at each
    path's largest shapes, bounds from the bytes or operations each kernel
    needs, the plain version's and a library call's time; K7 also at every
    shape of ``K7_SHAPES`` with the L2 cold, each route forced; K8 also at the
    serving and training shapes of ``K8_SHAPES`` with TFLOP/s, both
-   block_q and its ptxas registers and spills), one JSON line of
-   end-to-end numbers, and last the ``{"ok": true, "device": ...}`` line.
-   Any failure exits non-zero.
+   block_q and its ptxas registers and spills; K6 beside the one PyTorch
+   call that computes it, ``torch.mul(q, scales[:, None], out=bf16)``,
+   bit-equal at both output dtypes), one JSON line of end-to-end numbers,
+   and last the ``{"ok": true, "device": ...}`` line. Any failure exits
+   non-zero.
 
 K4-K6 join the parity phase: K4 byte for byte on the same inputs and
 itemsizes as K2 (and K4 of K2 is the identity), K5 byte for byte on q and
@@ -74,6 +98,8 @@ It imports nothing of JAX or of the ``repro`` package. Scratch checkpoints
 go to ``build/chip_smoke_store``, ``build/chip_smoke_serve`` and
 ``build/chip_smoke_train`` (each removed when its phase ends, and all at
 the end), logs to ``chiprun_out/``.
+The reliability phase's go to ``build/chip_smoke_reliability``, removed
+when it ends.
 """
 from __future__ import annotations
 
@@ -698,14 +724,14 @@ def main_path(dev, card: str, profile: bool = False):
         say(f"restore step 2 onto {dev}: {restore_s:.3f} s, all "
             f"{len(leaves)} leaves bit-exact")
         del restored
-        # the host oracle re-encodes two leaves: same chunk digests
+        # the host oracle re-encodes one params leaf: same chunk digests
+        # (one leaf, not also the 604 MB embedding: the numpy encode of it
+        # took a minute of the script's time limit)
         m2 = mgr.load_manifest(2)["leaves"]
-        sub_names = ("params/embed", "params/stage_0/b0/mlp/wg")
-        sub = {"params": {"embed": state["params"]["embed"],
-                          "stage_0": {"b0": {"mlp": {
-                              "wg": state["params"]["stage_0"]["b0"]["mlp"]
-                              ["wg"]}}}}}
-        # the numpy oracle encodes a 604 MB leaf in one go before its first
+        name = "params/stage_0/b0/mlp/wg"
+        sub = {"params": {"stage_0": {"b0": {"mlp": {
+            "wg": state["params"]["stage_0"]["b0"]["mlp"]["wg"]}}}}}
+        # the numpy oracle encodes the leaf in one go before its first
         # chunk (and heartbeat): give its writer a longer keepalive
         oracle = CheckpointManager(
             TieredStore(Tier("fast", store_dir / "oracle")),
@@ -714,15 +740,13 @@ def main_path(dev, card: str, profile: bool = False):
         t0 = time.monotonic()
         oracle.save(sub, 2)
         oracle_s = time.monotonic() - t0
-        mo = oracle.load_manifest(2)["leaves"]
-        for name in sub_names:
-            if mo[name]["shards"] != m2[name]["shards"]:
-                fail(f"{name}: host-oracle chunk records differ from the "
-                     "device path's")
-        say(f"host oracle re-encode of {sub_names} ({oracle_s:.3f} s): "
+        if oracle.load_manifest(2)["leaves"][name]["shards"] != \
+                m2[name]["shards"]:
+            fail(f"{name}: host-oracle chunk records differ from the "
+                 "device path's")
+        say(f"host oracle re-encode of {name} ({oracle_s:.3f} s): "
             f"identical chunk digests "
-            f"({len(m2['params/embed']['shards'][0]['chunks'])} chunks for "
-            f"params/embed)")
+            f"({len(m2[name]['shards'][0]['chunks'])} chunks)")
         oracle.close()
         mgr.close()
         stats = {"save1_s": save1_s, "save2_s": save2_s,
@@ -746,7 +770,7 @@ def main_path(dev, card: str, profile: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# phase 6 — per-kernel numbers at each path's largest shapes
+# phase 7 — per-kernel numbers at each path's largest shapes
 # ---------------------------------------------------------------------------
 
 def kernel_table(dev, embed, launches: dict) -> list:
@@ -781,6 +805,20 @@ def kernel_table(dev, embed, launches: dict) -> list:
     ne = flat.numel()
     q, sc = ic.quantize_blocks(flat)
     nq = sc.numel()
+    # K6 as one PyTorch call: int8 × f32 in f32, cast to the output dtype
+    # on the store; held bit for bit against K6 at both output dtypes
+    q2, sc2 = q.view(nq, ic.BLOCK), sc.view(nq, 1)
+    k6_out = {dt: torch.empty(nq, ic.BLOCK, dtype=dt, device=dev)
+              for dt in (torch.bfloat16, torch.float32)}
+
+    def k6_library(dt=torch.bfloat16):
+        return torch.mul(q2, sc2, out=k6_out[dt])
+
+    for dt in k6_out:
+        if not torch.equal(bits(k6_library(dt).reshape(-1)[:ne]),
+                           bits(ic.dequantize_blocks(q, sc, ne, dt))):
+            fail(f"torch.mul(q, scales[:, None], out={dt}) is not bit-equal "
+                 "to K6 at params/embed")
     rows = []
     # name, source, replaces, kernel, plain, bytes moved, shape,
     # library call (or None) and what it is
@@ -813,7 +851,9 @@ def kernel_table(dev, embed, launches: dict) -> list:
          "src/repro/kernels/ckpt_codec/kernel.py:64",
          lambda: ic.dequantize_blocks(q, sc, ne, torch.bfloat16),
          lambda: ic.dequantize_plain(q, sc, ne, torch.bfloat16),
-         nq * ic.BLOCK + 4 * nq + 2 * ne, [ne], None, None),
+         nq * ic.BLOCK + 4 * nq + 2 * ne, [ne], k6_library,
+         "torch.mul(q, scales[:, None], out=<bf16>); bit-equal to K6 "
+         "for bf16 and f32 outputs"),
     ]
     for name, src, replaces, kern, plain, moved, shape, lib, lib_what \
             in specs:
@@ -1495,6 +1535,311 @@ def rans_stage_ms(dev) -> dict:
             "rle_encode_ms": rle}
 
 
+# ---------------------------------------------------------------------------
+# phase 6 — the reliability plane
+# ---------------------------------------------------------------------------
+
+PUBLISH_SEED = 99          # the published params (the served ones: seed 0)
+CHANGE_EVERY = 10          # round 1 changes every 10th params leaf
+DELTA_SLACK = MiB          # delta-sync bytes allowed past the changed chunks
+
+
+def _sites(fired) -> dict:
+    """{(op, tier, kind): firings} of a ``FaultPlane.fired()`` log."""
+    out: dict = {}
+    for op, tier, _rel, kind, _key in fired:
+        out[(op, tier, kind)] = out.get((op, tier, kind), 0) + 1
+    return out
+
+
+def _retries(store) -> int:
+    return sum(v for snap in store.health_report().values()
+               for k, v in snap.get("counters", {}).items()
+               if k.endswith("_retries"))
+
+
+def _inspect_rc(root) -> tuple:
+    """``python -m repro_torch.launch.inspect_ckpt ROOT --verify --json``
+    in-process: (exit code, report, seconds)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import inspect_ckpt
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        rc = inspect_ckpt.main([str(root), "--verify", "--json"])
+    return rc, json.loads(buf.getvalue()), time.monotonic() - t0
+
+
+def reliability(dev, card: str, serve_tok_per_s=None, *, full=True,
+                serve_kw=None):
+    """The reliability plane on the publisher → subscriber path, at full
+    gemma3-1b width: a ``WeightPublisher`` on a ``CheckpointManager``
+    (the checkpoint round's policy, retain 1) over a fast/slow store
+    wrapped in a seeded ``FaultPlane``; round 0 publishes the params with
+    the fast tier full (every object fails over to the slow tier: a
+    degraded commit) and latency on the slow tier; round 1 changes every
+    10th leaf under a transient EIO and a silent bit-rot on two named
+    fast-tier object writes (unchanged chunks re-promoted from the slow
+    tier, so the slow copy stays good) and the same latency. The
+    inspector finds the rot (exit 1), ``scrub`` heals it from the slow
+    tier (exit 0 after), round 1 restores onto the card through K4 bit
+    for bit, ``serve --weight-sync`` hot-swaps round 1 token for token
+    against a direct loop, and a second subscriber's delta sync pulls only
+    the changed chunks. `full=False` with a small `serve_kw` rehearses it
+    on reduced gemma3-1b (on the CPU: no launch counts)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.core.faults import FaultPlane, wrap_store
+    from repro_torch.core.policy import (CheckpointPolicy, ChunkingPolicy,
+                                         CodecPolicy, DurabilityPolicy,
+                                         PipelinePolicy)
+    from repro_torch.core.split_state import leaf_paths
+    from repro_torch.core.storage import Tier, TieredStore
+    from repro_torch.core.weightsync import (WeightPublisher,
+                                             WeightSubscriber,
+                                             assert_bitexact)
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.train.steps import make_serve_fns
+
+    serve_kw = dict(SERVE if serve_kw is None else serve_kw,
+                    full_config=full)
+    root = ROOT / "build" / "chip_smoke_reliability"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    if free < MIN_FREE_BYTES:
+        fail(f"only {free} bytes free under {root}; need "
+             f"{int(MIN_FREE_BYTES)}")
+    cfg = get_config("gemma3-1b")
+    cfg = cfg if full else reduced(cfg)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def params_only(n):
+        return n.startswith("params/")
+
+    stats = {"arch": cfg.arch_id, "full_width": full, "card": card}
+    try:
+        reset_counts()
+        model = Model(cfg)
+        params = model.init(seed=PUBLISH_SEED, device=dev)
+        tree = {"params": params}
+        leaves = leaf_paths(tree)
+        stats["params_bytes"] = sum(t.nbytes for _, t in leaves)
+        stats["leaves"] = len(leaves)
+        plane = FaultPlane(seed=7)
+        fast, slow = root / "fast", root / "slow"
+        store = wrap_store(TieredStore(Tier("fast", fast),
+                                       Tier("slow", slow)), plane)
+        mgr = CheckpointManager(store, CheckpointPolicy(
+            mode="incremental",
+            chunking=ChunkingPolicy(scheme="cdc", chunk_size=MiB),
+            pipeline=PipelinePolicy(io_threads=8),
+            durability=DurabilityPolicy(keepalive_s=60.0, retain=1),
+            codec=CodecPolicy(codec="raw", params_codec="byteplane-rle")),
+            device=dev)
+        WeightPublisher(mgr)
+        # the subscribers read both tiers of the publisher, without faults
+        delta = WeightSubscriber(
+            TieredStore(Tier("fast", fast), Tier("slow", slow)),
+            root / "cache-delta", name="delta", leaf_filter=params_only,
+            policy=CheckpointPolicy(pipeline=PipelinePolicy(io_threads=8)))
+        rounds = []
+
+        def publish(step, schedule):
+            for spec in schedule:
+                plane.add(**spec)
+            before = (_retries(store), mgr.chunks.degraded_writes,
+                      len(plane.fired()))
+            t0 = time.monotonic()
+            rep = mgr.save(tree, step)
+            store.wait_drained()
+            seconds = time.monotonic() - t0
+            fired = _sites(plane.fired()[before[2]:])
+            want = {(d["op"], d["tier"], d["kind"]) for d in schedule}
+            if set(fired) != want or any(
+                    fired[(d["op"], d["tier"], d["kind"])] != d.get("count", 1)
+                    for d in schedule if d.get("count", 1) > 0):
+                fail(f"round {step}: the plane fired {fired}, the "
+                     f"schedule was {schedule}")
+            plane.clear()
+            r = {"step": step, "save_s": seconds,
+                 "degraded": bool(rep.get("degraded")),
+                 "retries": _retries(store) - before[0],
+                 "degraded_objects": mgr.chunks.degraded_writes - before[1],
+                 "new_object_bytes": rep["new_object_bytes"],
+                 "chunks": rep["chunks"],
+                 "fired": {"/".join(k): v for k, v in fired.items()}}
+            rounds.append(r)
+            say(f"reliability: round {step} {json.dumps(r)}")
+            return r
+
+        slow_latency = dict(op="write", kind="latency", tier="slow",
+                            match=".obj", count=-1, latency_s=0.001)
+        # ---- round 0: the fast tier is full for the whole round --------
+        r0 = publish(0, [dict(op="write", kind="enospc", tier="fast",
+                              match=".obj", count=-1), slow_latency])
+        if not (r0["degraded"] and mgr.load_manifest(0).get("degraded")
+                and r0["degraded_objects"] > 0):
+            fail(f"round 0 did not commit degraded: {r0}")
+        t0 = time.monotonic()
+        st = delta.sync()
+        full_sync_s = time.monotonic() - t0
+        full_bytes = delta.counters["wire_bytes"]
+        if st["state"] != "live" or st["last_flipped_step"] != 0:
+            fail(f"the subscriber's full sync ended {st}")
+        assert_bitexact(delta.current()[1], tree)
+        full_flip_s = delta.counters["last_flip_blocking_s"]
+        # ---- round 1: 10% of the leaves change; EIO and bit-rot --------
+        m0 = mgr.load_manifest(0)["leaves"]
+        changed = [n for i, (n, _) in enumerate(leaves)
+                   if i % CHANGE_EVERY == 3]
+        named = dict(leaves)
+        with torch.no_grad():
+            for n in changed:
+                named[n].add_(1e-3)
+        sync()
+        # two chunks of unchanged leaves: round 1 re-promotes them from
+        # the slow tier to the fast one (the dedup check is fast-only)
+        kept = [d for n, rec in sorted(m0.items()) if n not in changed
+                for s in rec["shards"] for d in s["chunks"]]
+        eio_d, rot_d = sorted(set(kept), key=kept.index)[:2]
+        r1 = publish(1, [dict(op="write", kind="eio", tier="fast",
+                              match=eio_d),
+                         dict(op="write", kind="bitrot", tier="fast",
+                              match=rot_d), slow_latency])
+        if r1["degraded"] or r1["retries"] < 1:
+            fail(f"round 1: {r1}")
+        stats["rounds"] = rounds
+        # ---- inspect, scrub, inspect, restore --------------------------
+        rc, rep, secs = _inspect_rc(fast)
+        stats["inspect_before"] = {"rc": rc, "seconds": secs,
+                                   "problems": len(rep["problems"]),
+                                   "first_problem": rep["problems"][:1]}
+        say(f"reliability: inspector before the scrub rc {rc} in "
+            f"{secs:.3f} s: {len(rep['problems'])} problem(s), first "
+            f"{rep['problems'][:1]}")
+        if rc != 1 or not any(rot_d in p or "unreadable" in p
+                              for p in rep["problems"]):
+            fail("the inspector did not find the rotten object")
+        t0 = time.monotonic()
+        srep = mgr.scrub()["scrub"]
+        stats["scrub"] = dict(srep, seconds=time.monotonic() - t0)
+        if srep["healed"] < 1 or srep["unrecoverable"]:
+            fail(f"the scrub did not heal the rot: {srep}")
+        rc, rep, secs = _inspect_rc(fast)
+        stats["inspect_after"] = {"rc": rc, "seconds": secs,
+                                  "problems": len(rep["problems"])}
+        if rc != 0:
+            fail(f"the inspector after the scrub: rc {rc} {rep['problems']}")
+        t0 = time.monotonic()
+        got, _ = mgr.restore(tree, step=1)
+        sync()
+        stats["restore_s"] = time.monotonic() - t0
+        assert_bitexact(dict(leaf_paths(got)), tree)
+        del got
+        # ---- serve --weight-sync: round 1 hot-swapped before decoding --
+        t0 = time.monotonic()
+        res = serve.run("gemma3-1b", workdir=str(root / "serve"),
+                        weight_sync=str(fast), device=dev, **serve_kw)
+        serve_s = time.monotonic() - t0
+        if res.get("weight_sync_step") != 1:
+            fail(f"serve --weight-sync flipped {res.get('weight_sync_step')}"
+                 ", not round 1")
+        assert_bitexact(dict(leaf_paths({"params": res.pop("params")})),
+                        tree)
+        n, p, g = (serve_kw["n_requests"], serve_kw["prompt_len"],
+                   serve_kw["gen_len"])
+        prefill_fn, decode_fn, _ = make_serve_fns(model)
+        prompts = np.random.default_rng(serve_kw["seed"]).integers(
+            0, cfg.vocab_size, (n, p), dtype=np.int32)
+        init = model.init(seed=serve_kw["seed"], device=dev)
+        tok, cache = prefill_fn(init, torch.from_numpy(prompts).to(dev),
+                                cache_len=p + g)
+        del init
+        out = np.full((n, g), -1, np.int32)
+        out[:, 0] = tok.cpu().numpy()
+        for c in range(1, g):
+            tok, cache = decode_fn(params, cache,
+                                   torch.from_numpy(out[:, c - 1]).to(dev))
+            out[:, c] = tok.cpu().numpy()
+        del cache
+        if not np.array_equal(res["tokens"], out):
+            fail("the hot-swapped serve's tokens differ from the direct "
+                 "loop's (prefill initial params, decode round 1)")
+        ws = res["weight_sync"]
+        polling_s = res["decode_s"] - ws["flip_sync_s"] - ws["swap_s"]
+        stats["serve"] = {
+            "weight_sync_step": 1, "token_exact": True, "run_s": serve_s,
+            "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+            "tok_per_s": res["tok_per_s"],
+            "tok_per_s_polling": n * (g - 1) / polling_s,
+            "serving_phase_tok_per_s": serve_tok_per_s, **ws}
+        # ---- delta sync: round 1 moves only the changed chunks ---------
+        m1 = mgr.load_manifest(1)["leaves"]
+        old = {d for rec in m0.values() for s in rec["shards"]
+               for d in s["chunks"]}
+        new_chunks = {}
+        for name in changed:
+            for s in m1[name]["shards"]:
+                for d, ln in zip(s["chunks"], s["chunk_lens"]):
+                    if d not in old:
+                        new_chunks[d] = ln
+        t0 = time.monotonic()
+        st = delta.sync()
+        delta_s = time.monotonic() - t0
+        delta_bytes = delta.counters["wire_bytes"] - full_bytes
+        bound = sum(new_chunks.values()) + DELTA_SLACK
+        if st["last_flipped_step"] != 1 or not 0 < delta_bytes <= bound:
+            fail(f"delta sync: {delta_bytes} bytes against a bound of "
+                 f"{bound} ({st})")
+        assert_bitexact(delta.current()[1], tree)
+        # what one poll of an up-to-date subscriber costs, in its parts:
+        # the ANNOUNCE read and parse, and the status (a cache walk)
+        t0 = time.monotonic()
+        for _ in range(5):
+            delta.poll()
+        poll_s = (time.monotonic() - t0) / 5
+        t0 = time.monotonic()
+        for _ in range(5):
+            delta.status()
+        status_s = (time.monotonic() - t0) / 5
+        stats["serve"].update(idle_poll_announce_s=poll_s,
+                              idle_poll_status_s=status_s)
+        stats["full_sync"] = {"seconds": full_sync_s, "bytes": full_bytes,
+                              "flip_blocking_s": full_flip_s}
+        stats["delta_sync"] = {
+            "seconds": delta_s, "bytes": delta_bytes,
+            "changed_leaves": len(changed),
+            "changed_chunk_bytes": sum(new_chunks.values()),
+            "slack_bytes": DELTA_SLACK,
+            "flip_blocking_s": delta.counters["last_flip_blocking_s"]}
+        delta.close()
+        mgr.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(Path("/dev/shm") / f"repro-bb-{os.getpid()}",
+                      ignore_errors=True)
+    launches = read_counts()
+    stats["launches"] = launches
+    if on_card:
+        for k in ("gear_scan", "byteplane_fwd", "rle_emit", "byteplane_inv",
+                  "rmsnorm", "flash_attention"):
+            if launches[k] <= 0:
+                fail(f"kernel {k} was not launched on the reliability path")
+    say(f"reliability: launches {launches}")
+    return stats
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -1546,6 +1891,14 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--reliability-only" in sys.argv[1:]:
+        rel = reliability(dev, card)
+        say(card)
+        say(json.dumps({"reliability": rel}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     profile = "--profile" in sys.argv[1:]
     reset_counts()
     state, launches, stats = main_path(dev, card, profile=profile)
@@ -1556,6 +1909,8 @@ def main() -> int:
     serve_stats, serve_launches = serving(dev, card, profile=profile)
     reset_counts()
     train_stats, train_launches = training(dev, card, profile=profile)
+    torch.cuda.empty_cache()
+    rel = reliability(dev, card, serve_stats["decode_tok_per_s"])
     codec = ("byteplane_inv", "quantize_blocks", "dequantize_blocks")
     rows = kernel_table(dev, embed, {
         **launches, **{k: train_launches[k] for k in codec}})
@@ -1563,15 +1918,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += model_kernel_table(dev, {
         **serve_launches, "rmsnorm_train": train_launches["rmsnorm"]})
+    for row in rows:
+        row["launches_reliability"] = rel["launches"][row["name"]]
     stats["rans_stage"] = rans_stage_ms(dev)
     say(card)
+    say(json.dumps({"reliability": rel}))
     say(json.dumps({"main_path": stats, "serving": serve_stats,
                     "training": train_stats}))
     say(json.dumps({"kernels": rows}))
     (out_dir / "chip_smoke_report.json").write_text(
         json.dumps({"card": card, "main_path": stats,
                     "serving": serve_stats, "training": train_stats,
-                    "kernels": rows}, indent=1))
+                    "reliability": rel, "kernels": rows}, indent=1))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,7 +11,13 @@ package's) finishes token-exact.
     python -m repro_torch.launch.serve --arch gemma3-1b --requests 8
 
 Runs on the CUDA card unless ``--device cpu`` (``run(device="cpu")``).
-The JAX launcher's ``--weight-sync`` hot-swap is not ported yet.
+
+With ``--weight-sync <store-root>`` the server also subscribes to a
+trainer-side ``WeightPublisher``: before every decode step it polls the
+store's announcement, pulls only the chunks its cache misses, and on a new
+flip copies the flipped host set into the served parameter tensors on the
+device — serving never blocks on a full restore, and a failed sync holds
+the last-good weights.
 """
 from __future__ import annotations
 
@@ -38,9 +44,51 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def _hot_swap(params, sub, last_step, ws: dict, dev):
+    """Poll the WeightSync subscriber before a decode step and, on a new
+    flip, copy the flipped host tensors into the served parameter tensors
+    (leaf names match ``leaf_paths`` under the ``params/`` root — the
+    naming the publisher's manifest uses): one H2D copy per flip, none per
+    poll. A leaf missing from the flipped set (or of another shape) holds
+    the serving params as they are; a failed sync already held the
+    subscriber's last-good set. Accumulates the poll and copy times in
+    `ws`."""
+    import torch
+
+    from ..core.split_state import leaf_paths
+    t0 = time.monotonic()
+    sub.sync()
+    step, arrays = sub.current()
+    dt = time.monotonic() - t0
+    ws["polls"] += 1
+    ws["sync_s"] += dt
+    if step is None or step == last_step:
+        return last_step
+    ws["flip_sync_s"] += dt
+    leaves = leaf_paths({"params": params})
+    missing = [n for n, leaf in leaves if n not in arrays
+               or tuple(arrays[n].shape) != tuple(leaf.shape)]
+    if missing:
+        log.warning("weight-sync step %s misses %d leaf(s) (e.g. %s) — "
+                    "holding current params", step, len(missing),
+                    missing[0])
+        return last_step
+    t0 = time.monotonic()
+    with torch.no_grad():
+        for name, leaf in leaves:
+            leaf.copy_(arrays[name])
+    _sync(dev)
+    ws["swaps"] += 1
+    ws["swap_s"] += time.monotonic() - t0
+    ws["flip_blocking_s"] += sub.counters["last_flip_blocking_s"]
+    log.info("hot-swapped params to published step %s", step)
+    return step
+
+
 def run(arch: str, *, n_requests=8, prompt_len=32, gen_len=32,
         workdir="runs/serve", ckpt_every=16, preempt_at=None,
-        full_config=False, seed=0, device=None):
+        full_config=False, seed=0, weight_sync=None, weight_sync_name=None,
+        device=None):
     """Greedy-serve `n_requests` prompts of `prompt_len` tokens (from
     ``np.random.default_rng(seed)``, as the JAX launcher draws them) for
     `gen_len` tokens, checkpointing the serving state every `ckpt_every`
@@ -48,7 +96,14 @@ def run(arch: str, *, n_requests=8, prompt_len=32, gen_len=32,
     A run whose store already holds a checkpoint resumes from the newest.
     Returns the JAX launcher's report plus timings: ``prefill_s``,
     ``decode_s``, ``tok_per_s``, ``save_s``/``save_bytes`` (last save) and
-    ``restore_s``."""
+    ``restore_s``.
+
+    `weight_sync` (a publisher's store root) hot-swaps published params
+    before every decode step (``_hot_swap``); the completed report then
+    carries ``weight_sync_step`` (the last flipped step, as the JAX
+    launcher's), the served ``params`` and ``weight_sync``: polls, swaps
+    (flips copied in), the seconds in ``sync()`` (all polls, and those
+    that flipped), the copy seconds and the flips' blocking seconds."""
     import torch
     cfg = get_config(arch) if full_config else reduced(get_config(arch))
     dev = resolve_device(device)
@@ -57,7 +112,19 @@ def run(arch: str, *, n_requests=8, prompt_len=32, gen_len=32,
     manager = CheckpointManager(default_store(f"{workdir}/{arch}"),
                                 CheckpointPolicy(n_writers=2), device=dev)
     rep = {}
+    sub, ws_step = None, None
+    ws = dict(polls=0, swaps=0, sync_s=0.0, flip_sync_s=0.0, swap_s=0.0,
+              flip_blocking_s=0.0)
     try:
+        if weight_sync is not None:
+            from ..core.storage import Tier, TieredStore
+            from ..core.weightsync import WeightSubscriber
+            sub = WeightSubscriber(
+                TieredStore(Tier("ws-src", weight_sync)),
+                f"{workdir}/{arch}/ws-cache",
+                name=weight_sync_name or f"serve-{arch}",
+                leaf_filter=lambda n: n.startswith("params/"))
+            log.info("weight-sync: subscribed to %s", weight_sync)
         rng = np.random.default_rng(seed)
         prompts = rng.integers(0, cfg.vocab_size, (n_requests, prompt_len),
                                dtype=np.int32)
@@ -104,6 +171,8 @@ def run(arch: str, *, n_requests=8, prompt_len=32, gen_len=32,
         t0 = time.monotonic()
         start = cursor
         while cursor < gen_len:
+            if sub is not None:
+                ws_step = _hot_swap(params, sub, ws_step, ws, dev)
             tok, cache = decode_fn(params, cache,
                                    torch.from_numpy(out[:, cursor - 1])
                                    .to(dev))
@@ -123,8 +192,13 @@ def run(arch: str, *, n_requests=8, prompt_len=32, gen_len=32,
         rep.update(status="completed", cursor=cursor, tokens=out,
                    decode_s=dt,
                    tok_per_s=n_requests * (gen_len - start) / max(dt, 1e-9))
+        if sub is not None:
+            rep.update(weight_sync_step=ws_step, weight_sync=ws,
+                       params=params)
         return rep
     finally:
+        if sub is not None:
+            sub.close()
         manager.close()
 
 
@@ -137,6 +211,12 @@ def main(argv=None):
     ap.add_argument("--workdir", default="runs/serve")
     ap.add_argument("--ckpt-every", type=int, default=16)
     ap.add_argument("--preempt-at", type=int, default=None)
+    ap.add_argument("--weight-sync", default=None, metavar="STORE_ROOT",
+                    help="subscribe to a WeightSync publisher's store root "
+                         "and hot-swap params between decode steps")
+    ap.add_argument("--weight-sync-name", default=None,
+                    help="subscriber name published back to the source "
+                         "(inspect_ckpt --subscribers)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
@@ -144,8 +224,9 @@ def main(argv=None):
     rep = run(args.arch, n_requests=args.requests,
               prompt_len=args.prompt_len, gen_len=args.gen_len,
               workdir=args.workdir, ckpt_every=args.ckpt_every,
-              preempt_at=args.preempt_at, device=args.device)
-    print({k: v for k, v in rep.items() if k != "tokens"})
+              preempt_at=args.preempt_at, weight_sync=args.weight_sync,
+              weight_sync_name=args.weight_sync_name, device=args.device)
+    print({k: v for k, v in rep.items() if k not in ("tokens", "params")})
     return 0
 
 
