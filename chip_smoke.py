@@ -38,7 +38,7 @@
    fused K2+K1+K3 dispatch, moments through the segmented K1 scan), ~10% of
    the leaves changed, saved again asynchronously, restored onto the card
    and compared bit for bit. The launch counts of K1-K3 must be > 0, and
-   a params leaf re-encoded by the host oracle must give the same chunk
+   two leaves re-encoded by the host oracle must give the same chunk
    digests.
 4. The serving path: ``repro_torch.launch.serve.run`` serves full-width
    gemma3-1b in bf16 (8 requests, 2048-token prompts, 64 new tokens)
@@ -65,8 +65,10 @@
    (persistent ENOSPC on its object writes) and latency on the slow tier,
    and must commit degraded; round 1 changes every 10th leaf under a
    transient EIO and a silent bit-rot on two named fast-tier object
-   writes (chunks the round re-promotes from the slow tier) and the same
-   latency; each round's fired sites must match its schedule. The
+   writes (chunks the round re-promotes from the slow tier, because the
+   CAS dedup check looks at the fast tier only: the rot site depends on
+   that re-promotion) and the same latency; each round's fired sites must
+   match its schedule. The
    inspector (``--verify``) must exit 1, ``scrub`` must heal the rot from
    the slow tier, the inspector must then exit 0, and round 1 restored
    onto the card (K4) must equal the published params bit for bit.
@@ -75,7 +77,9 @@
    the tokens of a direct loop (prefill with the initial params, decode
    with round 1's); a second subscriber's delta sync from round 0 to
    round 1 may pull no more than the changed leaves' new chunks plus 1
-   MiB. K1-K4, K7 and K8 must launch. One ``{"reliability": ...}`` JSON
+   MiB. Launches are counted per segment, from 0 just before it: K1-K3
+   must launch in the publisher's saves, K4 in the restore, K7 and K8 in
+   ``serve.run``. One ``{"reliability": ...}`` JSON
    line carries the round, inspector, scrub, restore, sync and serve
    times and bytes.
 7. Prints one JSON line of per-kernel numbers (CUDA-event times at each
@@ -724,14 +728,14 @@ def main_path(dev, card: str, profile: bool = False):
         say(f"restore step 2 onto {dev}: {restore_s:.3f} s, all "
             f"{len(leaves)} leaves bit-exact")
         del restored
-        # the host oracle re-encodes one params leaf: same chunk digests
-        # (one leaf, not also the 604 MB embedding: the numpy encode of it
-        # took a minute of the script's time limit)
+        # the host oracle re-encodes two leaves: same chunk digests
         m2 = mgr.load_manifest(2)["leaves"]
-        name = "params/stage_0/b0/mlp/wg"
-        sub = {"params": {"stage_0": {"b0": {"mlp": {
-            "wg": state["params"]["stage_0"]["b0"]["mlp"]["wg"]}}}}}
-        # the numpy oracle encodes the leaf in one go before its first
+        sub_names = ("params/embed", "params/stage_0/b0/mlp/wg")
+        sub = {"params": {"embed": state["params"]["embed"],
+                          "stage_0": {"b0": {"mlp": {
+                              "wg": state["params"]["stage_0"]["b0"]["mlp"]
+                              ["wg"]}}}}}
+        # the numpy oracle encodes a 604 MB leaf in one go before its first
         # chunk (and heartbeat): give its writer a longer keepalive
         oracle = CheckpointManager(
             TieredStore(Tier("fast", store_dir / "oracle")),
@@ -740,13 +744,15 @@ def main_path(dev, card: str, profile: bool = False):
         t0 = time.monotonic()
         oracle.save(sub, 2)
         oracle_s = time.monotonic() - t0
-        if oracle.load_manifest(2)["leaves"][name]["shards"] != \
-                m2[name]["shards"]:
-            fail(f"{name}: host-oracle chunk records differ from the "
-                 "device path's")
-        say(f"host oracle re-encode of {name} ({oracle_s:.3f} s): "
+        mo = oracle.load_manifest(2)["leaves"]
+        for name in sub_names:
+            if mo[name]["shards"] != m2[name]["shards"]:
+                fail(f"{name}: host-oracle chunk records differ from the "
+                     "device path's")
+        say(f"host oracle re-encode of {sub_names} ({oracle_s:.3f} s): "
             f"identical chunk digests "
-            f"({len(m2[name]['shards'][0]['chunks'])} chunks)")
+            f"({len(m2['params/embed']['shards'][0]['chunks'])} chunks for "
+            f"params/embed)")
         oracle.close()
         mgr.close()
         stats = {"save1_s": save1_s, "save2_s": save2_s,
@@ -1572,8 +1578,7 @@ def _inspect_rc(root) -> tuple:
     return rc, json.loads(buf.getvalue()), time.monotonic() - t0
 
 
-def reliability(dev, card: str, serve_tok_per_s=None, *, full=True,
-                serve_kw=None):
+def reliability(dev, card: str, serve_tok_per_s=None):
     """The reliability plane on the publisher → subscriber path, at full
     gemma3-1b width: a ``WeightPublisher`` on a ``CheckpointManager``
     (the checkpoint round's policy, retain 1) over a fast/slow store
@@ -1587,12 +1592,22 @@ def reliability(dev, card: str, serve_tok_per_s=None, *, full=True,
     tier (exit 0 after), round 1 restores onto the card through K4 bit
     for bit, ``serve --weight-sync`` hot-swaps round 1 token for token
     against a direct loop, and a second subscriber's delta sync pulls only
-    the changed chunks. `full=False` with a small `serve_kw` rehearses it
-    on reduced gemma3-1b (on the CPU: no launch counts)."""
+    the changed chunks.
+
+    The rot site relies on that re-promotion: the CAS dedup check looks
+    at the fast tier only, so round 1 rewrites the unchanged chunks there.
+    A dedup that also saw the slow tier would leave no such write, and the
+    schedule would have to move. (The rot cannot sit on a round-0 write:
+    the drain copies a fast-tier object to the slow tier unverified, so
+    no good copy would be left to heal from.)
+
+    Launches are read per segment, each with the counts set to 0 just
+    before it: the publisher's saves (K1-K3), the restore (K4) and
+    ``serve.run`` (K7, K8)."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs import get_config
     from repro_torch.core.checkpoint import CheckpointManager
     from repro_torch.core.faults import FaultPlane, wrap_store
     from repro_torch.core.policy import (CheckpointPolicy, ChunkingPolicy,
@@ -1607,8 +1622,6 @@ def reliability(dev, card: str, serve_tok_per_s=None, *, full=True,
     from repro_torch.models import Model
     from repro_torch.train.steps import make_serve_fns
 
-    serve_kw = dict(SERVE if serve_kw is None else serve_kw,
-                    full_config=full)
     root = ROOT / "build" / "chip_smoke_reliability"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
@@ -1617,19 +1630,19 @@ def reliability(dev, card: str, serve_tok_per_s=None, *, full=True,
         fail(f"only {free} bytes free under {root}; need "
              f"{int(MIN_FREE_BYTES)}")
     cfg = get_config("gemma3-1b")
-    cfg = cfg if full else reduced(cfg)
-    on_card = dev.type == "cuda"
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize(dev)
 
     def params_only(n):
         return n.startswith("params/")
 
-    stats = {"arch": cfg.arch_id, "full_width": full, "card": card}
+    stats = {"arch": cfg.arch_id, "full_width": True, "card": card}
+    launches = {seg: dict.fromkeys(read_counts(), 0)
+                for seg in ("publish", "restore", "serve")}
+
+    def count(seg):
+        for k, v in read_counts().items():
+            launches[seg][k] += v
+
     try:
-        reset_counts()
         model = Model(cfg)
         params = model.init(seed=PUBLISH_SEED, device=dev)
         tree = {"params": params}
@@ -1660,10 +1673,12 @@ def reliability(dev, card: str, serve_tok_per_s=None, *, full=True,
                 plane.add(**spec)
             before = (_retries(store), mgr.chunks.degraded_writes,
                       len(plane.fired()))
+            reset_counts()
             t0 = time.monotonic()
             rep = mgr.save(tree, step)
             store.wait_drained()
             seconds = time.monotonic() - t0
+            count("publish")
             fired = _sites(plane.fired()[before[2]:])
             want = {(d["op"], d["tier"], d["kind"]) for d in schedule}
             if set(fired) != want or any(
@@ -1707,7 +1722,7 @@ def reliability(dev, card: str, serve_tok_per_s=None, *, full=True,
         with torch.no_grad():
             for n in changed:
                 named[n].add_(1e-3)
-        sync()
+        torch.cuda.synchronize(dev)
         # two chunks of unchanged leaves: round 1 re-promotes them from
         # the slow tier to the fast one (the dedup check is fast-only)
         kept = [d for n, rec in sorted(m0.items()) if n not in changed
@@ -1741,28 +1756,31 @@ def reliability(dev, card: str, serve_tok_per_s=None, *, full=True,
                                   "problems": len(rep["problems"])}
         if rc != 0:
             fail(f"the inspector after the scrub: rc {rc} {rep['problems']}")
+        reset_counts()
         t0 = time.monotonic()
         got, _ = mgr.restore(tree, step=1)
-        sync()
+        torch.cuda.synchronize(dev)
         stats["restore_s"] = time.monotonic() - t0
+        count("restore")
         assert_bitexact(dict(leaf_paths(got)), tree)
         del got
         # ---- serve --weight-sync: round 1 hot-swapped before decoding --
+        reset_counts()
         t0 = time.monotonic()
         res = serve.run("gemma3-1b", workdir=str(root / "serve"),
-                        weight_sync=str(fast), device=dev, **serve_kw)
+                        weight_sync=str(fast), device=dev, **SERVE)
         serve_s = time.monotonic() - t0
+        count("serve")
         if res.get("weight_sync_step") != 1:
             fail(f"serve --weight-sync flipped {res.get('weight_sync_step')}"
                  ", not round 1")
         assert_bitexact(dict(leaf_paths({"params": res.pop("params")})),
                         tree)
-        n, p, g = (serve_kw["n_requests"], serve_kw["prompt_len"],
-                   serve_kw["gen_len"])
+        n, p, g = SERVE["n_requests"], SERVE["prompt_len"], SERVE["gen_len"]
         prefill_fn, decode_fn, _ = make_serve_fns(model)
-        prompts = np.random.default_rng(serve_kw["seed"]).integers(
+        prompts = np.random.default_rng(SERVE["seed"]).integers(
             0, cfg.vocab_size, (n, p), dtype=np.int32)
-        init = model.init(seed=serve_kw["seed"], device=dev)
+        init = model.init(seed=SERVE["seed"], device=dev)
         tok, cache = prefill_fn(init, torch.from_numpy(prompts).to(dev),
                                 cache_len=p + g)
         del init
@@ -1829,13 +1847,15 @@ def reliability(dev, card: str, serve_tok_per_s=None, *, full=True,
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(Path("/dev/shm") / f"repro-bb-{os.getpid()}",
                       ignore_errors=True)
-    launches = read_counts()
     stats["launches"] = launches
-    if on_card:
-        for k in ("gear_scan", "byteplane_fwd", "rle_emit", "byteplane_inv",
-                  "rmsnorm", "flash_attention"):
-            if launches[k] <= 0:
-                fail(f"kernel {k} was not launched on the reliability path")
+    for seg, names in (("publish", ("gear_scan", "byteplane_fwd",
+                                    "rle_emit")),
+                       ("restore", ("byteplane_inv",)),
+                       ("serve", ("rmsnorm", "flash_attention"))):
+        for k in names:
+            if launches[seg][k] <= 0:
+                fail(f"kernel {k} was not launched by the reliability "
+                     f"phase's {seg}")
     say(f"reliability: launches {launches}")
     return stats
 
@@ -1919,7 +1939,8 @@ def main() -> int:
     rows += model_kernel_table(dev, {
         **serve_launches, "rmsnorm_train": train_launches["rmsnorm"]})
     for row in rows:
-        row["launches_reliability"] = rel["launches"][row["name"]]
+        row["launches_reliability"] = {
+            seg: c[row["name"]] for seg, c in rel["launches"].items()}
     stats["rans_stage"] = rans_stage_ms(dev)
     say(card)
     say(json.dumps({"reliability": rel}))
