@@ -9,10 +9,15 @@
     python3 chip_smoke.py --k8-only      # build, K7/K8 parity, K8's times at
                                          #   the path's shapes, no main path
     python3 chip_smoke.py --profile      # + device time of save 2 / restore,
-                                         #   of the uninterrupted serve and
-                                         #   of one training step
+                                         #   of the uninterrupted serve, of
+                                         #   one training step and of the
+                                         #   zoo's step, preempt save and
+                                         #   restore (also with --zoo-only)
     python3 chip_smoke.py --reliability-only  # build, parity, the
                                          #   reliability phase alone
+    python3 chip_smoke.py --zoo-only     # build, parity, the zoo phase
+                                         #   alone (needs 30 GB of disk
+                                         #   under build/)
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
@@ -82,7 +87,27 @@
    ``serve.run``. One ``{"reliability": ...}`` JSON
    line carries the round, inspector, scrub, restore, sync and serve
    times and bytes.
-7. Prints one JSON line of per-kernel numbers (CUDA-event times at each
+7. The rest of the attention zoo: K8 at the new configs' path shapes
+   (``ZOO_ATTN``: S 2048 causal for gemma2-9b with softcap 50, window
+   4096 and global, stablelm-1.6b, starcoder2-3b, chameleon-34b,
+   llama4-scout and kimi-k2, and llama4's training shape) and K7 at their
+   widths and chameleon's qk-norm rows (``ZOO_RMS``), bf16, within the
+   tolerances above. Then llama4-scout-17b-a16e at full width, 2 of 48
+   layers (~6.5 G params, ~13 GB of bf16), trains through the port's
+   ``Trainer`` with Adafactor (synthetic pipeline seed 0, batch 4 × 1024):
+   run A four steps; run B (the training phase's checkpoint policy,
+   ``ckpt_every=2``, async saves) preempted after step 3 and resumed to
+   step 4, whose ``params_digest`` must equal run A's. Its 2.7 GB expert
+   stack ``params/stage_0/b0/moe/wg`` is a leaf past 2^31 bytes: restored
+   through K4 it must equal the saved leaf bit for bit, and its device cut
+   points and chunk digests in a window across byte 2^31 must equal the
+   host oracle's (``straddle_check``). Launches are read per segment from
+   0: run A's steps must launch K7 and K8, run B's saves K1-K3, the
+   restore K4. One ``{"zoo": ...}`` line carries the step times, tokens/s,
+   peak device bytes, ``drop_fraction``, save and restore times and bytes,
+   and the largest leaf. The phase needs 30 GB of disk under ``build/``
+   (``build/chip_smoke_zoo``, removed when it ends).
+8. Prints one JSON line of per-kernel numbers (CUDA-event times at each
    path's largest shapes, bounds from the bytes or operations each kernel
    needs, the plain version's and a library call's time; K7 also at every
    shape of ``K7_SHAPES`` with the L2 cold, each route forced; K8 also at the
@@ -1860,6 +1885,353 @@ def reliability(dev, card: str, serve_tok_per_s=None):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phase 7 — the rest of the attention zoo: llama4-scout trained at full width
+# ---------------------------------------------------------------------------
+
+ZOO_ARCH = "llama4-scout-17b-a16e"
+ZOO_LAYERS = 2                # of 48: ~6.5 G params, ~13 GB of bf16
+ZOO_LEAF = "params/stage_0/b0/moe/wg"   # (2, 16, 5120, 8192) bf16
+ZOO_MIN_FREE_BYTES = 30e9     # two ~13 GB rounds of run B on disk
+STRADDLE = 1 << 31            # the window must straddle this byte
+# K8 at the new configs' path shapes, bf16, S 2048 causal (B, S, H, K, D,
+# window, softcap), and llama4's training shape; K7 at their widths
+ZOO_ATTN = {
+    "gemma2-9b_local": (2, 2048, 16, 8, 256, 4096, 50.0),
+    "gemma2-9b_global": (2, 2048, 16, 8, 256, 0, 50.0),
+    "stablelm-1.6b": (2, 2048, 32, 32, 64, 0, 0.0),
+    "starcoder2-3b": (2, 2048, 24, 2, 128, 0, 0.0),
+    "chameleon-34b": (2, 2048, 64, 8, 128, 0, 0.0),
+    "llama4-scout-17b-a16e": (2, 2048, 40, 8, 128, 0, 0.0),
+    "kimi-k2-1t-a32b": (2, 2048, 64, 8, 128, 0, 0.0),
+    "llama4_train": (4, 1024, 40, 8, 128, 0, 0.0),
+}
+ZOO_RMS = {"gemma2-9b": (4096, 3584), "llama4-scout-17b-a16e": (4096, 5120),
+           "kimi-k2-1t-a32b": (4096, 7168), "chameleon-34b": (4096, 8192),
+           "chameleon-34b_q_norm": (4096 * 64, 128),
+           "chameleon-34b_k_norm": (4096 * 8, 128)}
+
+
+def zoo_parity(dev) -> dict:
+    """K8 and K7 against their plain versions at the new configs' path
+    shapes (bf16, ``ATTN_TOL``/``RMS_TOL``, the ``tests/test_kernels.py``
+    tolerances)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rn
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    bf = torch.bfloat16
+    worst = {}
+    for name, (B, S, H, K, D, window, cap) in ZOO_ATTN.items():
+        q = torch.randn((B, S, H, D), generator=g, device=dev).to(bf)
+        k = torch.randn((B, S, K, D), generator=g, device=dev).to(bf)
+        v = torch.randn((B, S, K, D), generator=g, device=dev).to(bf)
+        kw = dict(causal=True, window=window, softcap=cap)
+        err = (fa.flash_attention(q, k, v, **kw).float()
+               - fa.flash_attention_plain(q, k, v, **kw).float()) \
+            .abs().max().item()
+        if not err <= ATTN_TOL["bfloat16"]:
+            fail(f"K8 at {name} {(B, S, H, K, D)} {kw}: max abs err {err} "
+                 f"> {ATTN_TOL['bfloat16']}")
+        worst[f"k8_{name}"] = err
+        del q, k, v
+        torch.cuda.empty_cache()
+    for name, (n, d) in ZOO_RMS.items():
+        x = torch.randn((n, d), generator=g, device=dev).to(bf)
+        s = (torch.randn((d,), generator=g, device=dev) * 0.1).to(bf)
+        err = (rn.rmsnorm_fused(x, s).float()
+               - rn.rmsnorm_plain(x, s).float()).abs().max().item()
+        if not err <= RMS_TOL["bfloat16"]:
+            fail(f"K7 at {name} {(n, d)}: max abs err {err} > "
+                 f"{RMS_TOL['bfloat16']}")
+        worst[f"k7_{name}"] = err
+        del x
+    say(f"zoo parity: K8 at {len(ZOO_ATTN)} and K7 at {len(ZOO_RMS)} path "
+        f"shapes of the new configs within tolerance; worst "
+        f"{json.dumps(worst)}")
+    return worst
+
+
+def straddle_check(record, leaf_u8, itemsize: int, at: int, chunk_size: int,
+                   codec: str = "byteplane-rle") -> dict:
+    """Hold the device route's cut points and chunk digests of one leaf
+    (`record`: its manifest shard record, chunk-encoded; `leaf_u8`: the
+    leaf's bytes on the host) against the host oracle in a window that
+    straddles byte `at` of the transformed stream.
+
+    The window starts at the raw cut behind a device cut point ``c`` a few
+    chunks before `at`: the stored cuts are rounded up to the entropy
+    block grid, so the raw cut is the one candidate (loose ⊇ strict) of
+    the oracle scan in ``(c − block, c]``; a cut point with none or two
+    there is passed over. From a raw cut on, CDC depends only on the bytes
+    that follow, so the oracle's cuts over the window (the last, forced by
+    the window's end, dropped), rounded up to the grid, must be the
+    device's, and each chunk's oracle encoding must hash to the device's
+    digest and length. The oracle's transformed bytes are computed from
+    the leaf's elements around the window (``codec.byteplane_forward`` of
+    that slice), never from the whole leaf."""
+    import numpy as np
+
+    from repro_torch.core import codec as codec_mod
+    from repro_torch.core.cas import chunk_digest
+    from repro_torch.core.cdc import GearChunker
+    from repro_torch.core.cdc_scan import WINDOW, scan_candidates_numpy
+    blk = codec_mod.ENTROPY_BLOCK
+    n = int(record["raw_payload_bytes"])
+    k = int(itemsize)
+    ne = n // k
+    if n != len(leaf_u8) or n % k:
+        fail(f"straddle check: record of {n} bytes for a leaf of "
+             f"{len(leaf_u8)} bytes (itemsize {k})")
+    ck = GearChunker(chunk_size, device="cpu")
+    ms, ml = int(ck.mask_strict), int(ck.mask_loose)
+
+    def stream(lo, hi):
+        """Bytes [lo, hi) of the transformed stream, inside one plane."""
+        p = lo // ne
+        if hi > (p + 1) * ne:
+            fail(f"straddle window [{lo}, {hi}) crosses a plane edge")
+        j0, j1 = lo - p * ne, hi - p * ne
+        e0 = max(j0 - 1, 0)
+        sub = codec_mod.byteplane_forward(leaf_u8[e0 * k:j1 * k], k)
+        m = j1 - e0
+        return sub[p * m + (j0 - e0):(p + 1) * m]
+
+    cuts = np.cumsum(np.asarray(record["chunk_raw_lens"], np.int64))
+    starts = np.concatenate([[0], cuts[:-1]])
+    span = 24 * chunk_size
+    for c in cuts[(cuts <= at - 2 * chunk_size)][::-1][:8]:
+        c = int(c)
+        lo = c - blk - WINDOW
+        _, loose = scan_candidates_numpy(stream(lo, c), ms, ml)
+        raw = [int(x) + lo for x in loose if c - blk < int(x) + lo <= c]
+        if len(raw) == 1:
+            break
+    else:
+        fail("straddle check: no device cut point before the window with "
+             "one candidate behind it")
+    e = raw[0]
+    w = stream(e, min(e + span, n))
+    host = ck.cut_points_n(len(w), scan_candidates_numpy(w, ms, ml))[:-1]
+    aligned = []
+    for x in host:
+        a = -(-(e + x) // blk) * blk
+        if not aligned or a > aligned[-1]:
+            aligned.append(a)
+    dev_cuts = [int(x) for x in cuts if c < x <= aligned[-1]]
+    if aligned != dev_cuts or not (c < at < aligned[-1]):
+        fail(f"straddle check: oracle cuts {aligned} != device cuts "
+             f"{dev_cuts} in the window from {c} (raw {e}) across {at}")
+    i0 = int(np.searchsorted(cuts, c)) + 1      # first chunk after c
+    checked = 0
+    for i, (a, b) in enumerate(zip([c] + aligned[:-1], aligned)):
+        j = i0 + i
+        if int(starts[j]) != a or int(cuts[j]) != b:
+            fail(f"straddle check: chunk {j} spans {starts[j]}..{cuts[j]},"
+                 f" the oracle {a}..{b}")
+        body = codec_mod.plane_encode_chunk(stream(a, b), codec)
+        if chunk_digest(body) != record["chunks"][j] or \
+                len(body) != int(record["chunk_lens"][j]):
+            fail(f"straddle check: chunk {j} ({a}..{b}) of the device "
+                 "route differs from the host oracle's encoding")
+        checked += 1
+    return {"window": [c, aligned[-1]], "raw_cut": e, "at": at,
+            "chunks": checked, "cuts_after_at": sum(x > at for x in aligned)}
+
+
+def zoo(dev, card: str, profile: bool = False) -> dict:
+    """llama4-scout-17b-a16e at full width (d 5120, 40/8 heads of 128, 16
+    experts of 8192, top-1 and a shared expert, capacity factor 1.5, vocab
+    202,048), 2 of 48 layers, bf16 params, Adafactor, through the port's
+    ``Trainer`` on the synthetic pipeline (seed 0, batch 4 × 1,024, the
+    training phase's checkpoint policy). Run A takes four steps; run B
+    (``ckpt_every=2``, async saves) is preempted after step 3 and resumed
+    to step 4 (K4 decodes every params leaf): the digests must be equal.
+    The 2.7 GB expert stack is the first leaf past 2^31 bytes through the
+    fused K2+K1+K3 route and K4: its restore must equal the saved leaf bit
+    for bit, and its cut points and chunk digests in a window across byte
+    2^31 must equal the host oracle's (``straddle_check``). Launches are
+    read per segment from 0: the steps of run A (K7, K8), run B's saves
+    (K1-K3), the restore (K4). With `profile`, step 3 of run A (host and
+    device), the preempt save and the restore are traced."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.preempt import PreemptionGuard
+    from repro_torch.core.save_path import to_host
+    from repro_torch.core.split_state import leaf_paths
+    from repro_torch.core.storage import Tier, TieredStore
+    from repro_torch.train.loop import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config(ZOO_ARCH), n_layers=ZOO_LAYERS)
+    root = ROOT / "build" / "chip_smoke_zoo"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    if free < ZOO_MIN_FREE_BYTES:
+        fail(f"only {free} bytes free under {root}; need "
+             f"{int(ZOO_MIN_FREE_BYTES)} for two rounds of the 13 GB state")
+    os.environ["REPRO_CKPT_KEEPALIVE_S"] = "60"
+    ckpt = dict(ckpt_mode="incremental", chunking="cdc", chunk_size=MiB,
+                codec="raw", params_codec="byteplane-rle", io_threads=8,
+                async_ckpt=True, ckpt_every=2, retain=1)
+    stats = {"arch": cfg.arch_id, "n_layers": ZOO_LAYERS,
+             "of_layers": get_config(ZOO_ARCH).n_layers, **TRAIN,
+             "steps": TRAIN_STEPS, "preempt_after": PREEMPT_AFTER,
+             "optimizer": cfg.optimizer, "card": card}
+    launches = {}
+
+    def store(name):
+        return TieredStore(Tier("fast", root / name))
+
+    try:
+        # ---- run A: four steps, no checkpoint -------------------------
+        torch.cuda.reset_peak_memory_stats(dev)
+        tA = Trainer(cfg, TrainerConfig(workdir=str(root / "a"), log_every=1,
+                                        ckpt_every=0, **TRAIN),
+                     store=store("a"), device=dev)
+        t0 = time.monotonic()
+        tA.init_or_restore()
+        torch.cuda.synchronize()
+        stats["init_s"] = time.monotonic() - t0
+        leaves = leaf_paths(tA.state)
+        stats["state_bytes"] = sum(t.nbytes for _, t in leaves)
+        stats["params"] = sum(t.numel() for _, t in
+                              leaf_paths(tA.state["params"]))
+        big = dict(leaves)[ZOO_LEAF]
+        stats["largest_leaf"] = {"name": ZOO_LEAF, "bytes": big.nbytes,
+                                 "shape": list(big.shape)}
+        if big.nbytes <= STRADDLE or \
+                big.nbytes < max(t.nbytes for _, t in leaves):
+            fail(f"{ZOO_LEAF} ({big.nbytes} bytes) is not the largest leaf "
+                 "or not past 2^31 bytes")
+        del leaves, big
+        reset_counts()
+        tA.fit(TRAIN_STEPS, stop_after=2)
+        with DeviceProfile(profile, host=True) as prof:
+            t0 = time.monotonic()
+            tA.fit(TRAIN_STEPS, stop_after=1)
+            prof_s = time.monotonic() - t0
+        tA.fit(TRAIN_STEPS, stop_after=1)
+        torch.cuda.synchronize()
+        launches["steps"] = read_counts()
+        if profile:
+            stats["device_step"] = prof.summary(prof_s)
+        stats["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+        hist = tA.history
+        for key in ("loss", "nll", "drop_fraction", "load_balance_loss",
+                    "router_z_loss", "step_s", "grad_norm"):
+            stats[key] = [h[key] for h in hist]
+        stats["tokens_per_s"] = TRAIN["batch"] * TRAIN["seq_len"] * \
+            (TRAIN_STEPS - 1) / sum(stats["step_s"][1:])
+        digest_a = tA.params_digest()
+        tA.manager.close()
+        del tA
+        torch.cuda.empty_cache()
+        say(f"zoo A: {cfg.arch_id} ({ZOO_LAYERS} layers, {stats['params']} "
+            f"params, state {stats['state_bytes']} bytes), loss "
+            f"{stats['loss']}, drop_fraction {stats['drop_fraction']}, step "
+            f"s {stats['step_s']}, peak {stats['peak_device_bytes']} bytes")
+        if not all(math.isfinite(x) for x in stats["loss"]):
+            fail(f"llama4 training loss is not finite: {stats['loss']}")
+        # ---- run B: preempted after step 3 ----------------------------
+        tcfg_b = TrainerConfig(workdir=str(root / "b"), log_every=1,
+                               **TRAIN, **ckpt)
+        tB = Trainer(cfg, tcfg_b, store=store("b"), device=dev)
+        rounds: list = []
+        _record_rounds(tB.manager, rounds)
+        tB.init_or_restore()
+        reset_counts()
+        with PreemptionGuard() as guard:
+            tB.fit(TRAIN_STEPS, guard=guard, stop_after=PREEMPT_AFTER)
+            guard.request()
+            with DeviceProfile(profile) as prof_save:
+                t0 = time.monotonic()
+                rep = tB.fit(TRAIN_STEPS, guard=guard)
+                stats["preempt_exit_s"] = time.monotonic() - t0
+        launches["saves"] = read_counts()
+        if profile:
+            stats["device_preempt_save"] = prof_save.summary(
+                stats["preempt_exit_s"])
+        if rep["status"] != "preempted" or \
+                tB.manager.latest_step() != PREEMPT_AFTER:
+            fail(f"zoo run B ended {rep['status']} at step {rep['step']}")
+        if [h["loss"] for h in tB.history] != stats["loss"][:PREEMPT_AFTER]:
+            fail("zoo run B's losses differ from run A's")
+        saved = to_host(dict(leaf_paths(tB.state))[ZOO_LEAF])
+        tB.manager.close()
+        del tB
+        torch.cuda.empty_cache()
+        # ---- resume: K4 decodes every params leaf ---------------------
+        # step 4 runs without a save of its own (run A has none either)
+        tC = Trainer(cfg, dataclasses.replace(tcfg_b, ckpt_every=0),
+                     store=store("b"), device=dev)
+        _record_rounds(tC.manager, rounds)
+        reset_counts()
+        with DeviceProfile(profile) as prof_r:
+            t0 = time.monotonic()
+            tC.init_or_restore()
+            torch.cuda.synchronize()
+            stats["restore_s"] = time.monotonic() - t0
+        launches["restore"] = read_counts()
+        if profile:
+            stats["device_restore"] = prof_r.summary(stats["restore_s"])
+        n_params = len(leaf_paths(tC.state["params"]))
+        if tC.restored_from != PREEMPT_AFTER or \
+                launches["restore"]["byteplane_inv"] < n_params:
+            fail(f"zoo resume restored step {tC.restored_from} with "
+                 f"{launches['restore']['byteplane_inv']} K4 launches for "
+                 f"{n_params} params leaves")
+        got = to_host(dict(leaf_paths(tC.state))[ZOO_LEAF])
+        if got.shape != saved.shape or \
+                not (got.view("u1") == saved.view("u1")).all():
+            fail(f"{ZOO_LEAF} restored through K4 differs from the saved "
+                 "leaf")
+        del got
+        rec = tC.manager.load_manifest(PREEMPT_AFTER)["leaves"][ZOO_LEAF] \
+            ["shards"][0]
+        t0 = time.monotonic()
+        stats["straddle"] = straddle_check(
+            rec, saved.reshape(-1).view("u1"), 2, STRADDLE, MiB)
+        stats["straddle"]["seconds"] = time.monotonic() - t0
+        stats["straddle"]["leaf_chunks"] = len(rec["chunks"])
+        del saved
+        say(f"zoo straddle: {ZOO_LEAF} ({stats['largest_leaf']['bytes']} "
+            f"bytes) restored bit for bit; device cuts and digests equal "
+            f"the host oracle's in {json.dumps(stats['straddle'])}")
+        tC.fit(TRAIN_STEPS, stop_after=1)
+        digest_c = tC.params_digest()
+        if digest_c != digest_a:
+            fail(f"zoo: the resumed run's params_digest {digest_c[:16]} != "
+                 f"run A's {digest_a[:16]}")
+        stats["resumed_loss"] = [h["loss"] for h in tC.history]
+        if stats["resumed_loss"] != stats["loss"][PREEMPT_AFTER:]:
+            fail("zoo: the resumed step's loss differs from run A's")
+        stats["saves"] = rounds
+        tC.manager.close()
+        del tC
+    finally:
+        os.environ.pop("REPRO_CKPT_KEEPALIVE_S", None)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    for seg, kernels in (("steps", ("rmsnorm", "flash_attention")),
+                         ("saves", ("gear_scan", "byteplane_fwd",
+                                    "rle_emit")),
+                         ("restore", ("byteplane_inv",))):
+        for k in kernels:
+            if launches[seg][k] <= 0:
+                fail(f"kernel {k} was not launched in the zoo's {seg}")
+    stats["launches"] = launches
+    say(f"zoo B/resume: preempted at step {PREEMPT_AFTER}, restored in "
+        f"{stats['restore_s']:.3f} s, params_digest identical; saves "
+        f"{json.dumps(rounds)}; launches {json.dumps(launches)}")
+    return stats
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -1911,6 +2283,16 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--zoo-only" in sys.argv[1:]:
+        parity_zoo = zoo_parity(dev)
+        z = zoo(dev, card, profile="--profile" in sys.argv[1:])
+        z["parity"] = parity_zoo
+        say(card)
+        say(json.dumps({"zoo": z}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--reliability-only" in sys.argv[1:]:
         rel = reliability(dev, card)
         say(card)
@@ -1931,6 +2313,10 @@ def main() -> int:
     train_stats, train_launches = training(dev, card, profile=profile)
     torch.cuda.empty_cache()
     rel = reliability(dev, card, serve_stats["decode_tok_per_s"])
+    torch.cuda.empty_cache()
+    parity_zoo = zoo_parity(dev)
+    zoo_stats = zoo(dev, card, profile=profile)
+    zoo_stats["parity"] = parity_zoo
     codec = ("byteplane_inv", "quantize_blocks", "dequantize_blocks")
     rows = kernel_table(dev, embed, {
         **launches, **{k: train_launches[k] for k in codec}})
@@ -1941,16 +2327,20 @@ def main() -> int:
     for row in rows:
         row["launches_reliability"] = {
             seg: c[row["name"]] for seg, c in rel["launches"].items()}
+        row["launches_zoo"] = {
+            seg: c[row["name"]] for seg, c in zoo_stats["launches"].items()}
     stats["rans_stage"] = rans_stage_ms(dev)
     say(card)
     say(json.dumps({"reliability": rel}))
+    say(json.dumps({"zoo": zoo_stats}))
     say(json.dumps({"main_path": stats, "serving": serve_stats,
                     "training": train_stats}))
     say(json.dumps({"kernels": rows}))
     (out_dir / "chip_smoke_report.json").write_text(
         json.dumps({"card": card, "main_path": stats,
                     "serving": serve_stats, "training": train_stats,
-                    "reliability": rel, "kernels": rows}, indent=1))
+                    "reliability": rel, "zoo": zoo_stats, "kernels": rows},
+                   indent=1))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

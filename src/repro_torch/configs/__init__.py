@@ -1,12 +1,16 @@
 """Model configurations the port runs (copies of the JAX package's
-framework-free config modules), selectable by architecture id."""
+framework-free config modules), selectable by architecture id: the
+attention families, dense and MoE. mamba2-780m, recurrentgemma-9b and
+hubert-xlarge come with the SSM, RG-LRU and encoder slice."""
 from __future__ import annotations
 
-from . import gemma3_1b
-from .base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, SSM, ModelConfig, Stage,
-                   build_stages, reduced)
+from . import (chameleon_34b, gemma2_9b, gemma3_1b, kimi_k2_1t_a32b,
+               llama4_scout_17b_16e, stablelm_1_6b, starcoder2_3b)
+from .base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, SSM, ModelConfig,
+                   MoEConfig, Stage, build_stages, reduced)
 
-_MODULES = (gemma3_1b,)
+_MODULES = (kimi_k2_1t_a32b, llama4_scout_17b_16e, gemma3_1b, stablelm_1_6b,
+            starcoder2_3b, gemma2_9b, chameleon_34b)
 
 CONFIGS: dict[str, ModelConfig] = {m.CONFIG.arch_id: m.CONFIG
                                    for m in _MODULES}
@@ -23,5 +27,5 @@ def get_config(arch_id: str) -> ModelConfig:
 
 
 __all__ = ["ATTN_GLOBAL", "ATTN_LOCAL", "ARCH_IDS", "CONFIGS", "RGLRU",
-           "SSM", "ModelConfig", "Stage", "build_stages", "get_config",
-           "reduced"]
+           "SSM", "ModelConfig", "MoEConfig", "Stage", "build_stages",
+           "get_config", "reduced"]

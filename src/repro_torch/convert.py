@@ -3,7 +3,9 @@
 The JAX side is a nested dict of numpy arrays (``np.asarray`` of each JAX
 leaf: bfloat16 as an ``ml_dtypes`` array); the port's is a nested dict of
 tensors. bfloat16 crosses as its 16-bit pattern (``torch.Tensor.numpy()``
-refuses bf16), so no bit changes on the way. The tests move weights and
+refuses bf16), so no bit changes on the way; every leaf keeps its own
+dtype (a MoE router's float32 among bfloat16 params, Adafactor's float32
+``opt/f/**`` factors and its int32 ``count``). The tests move weights and
 state across with these two functions.
 """
 from __future__ import annotations

@@ -41,6 +41,7 @@ S = _RANS_STEPS
 _RANS_W = 1 + 3 * 256 + 4 * L + 2 * L + L * _LANE_MAX
 RANS_BATCH = 4096       # blocks per rANS pass: bounds the (nb, 16, 512)
                         # temporaries at a few hundred MB
+ENCODE_BATCH = 16384    # blocks a pass of the glue (64 MiB of stream)
 PORTED_CODECS = ("byteplane-rle", "byteplane-rans")
 
 launches = 0            # kernel launches since the last reset
@@ -192,7 +193,11 @@ def encode(t, codec: str, emitter=rle_emission):
     Returns (flags u8 [nb], dlens i32 [nb], stream u8 [n + 3·nb],
     total i64 scalar): the framed stream is ``stream[:total]``. JAX's
     out-of-range ``mode="drop"`` scatters become writes into one extra
-    sink slot that is sliced off."""
+    sink slot that is sliced off. Every block's encoding is independent of
+    the others', so the blocks go through the emitter and the glue
+    ``ENCODE_BATCH`` at a time: the glue's per-byte int32/int64
+    temporaries stay at a few GB whatever the payload (a 2.7 GB expert
+    stack would need ~100 GB in one pass)."""
     import torch
     if codec not in PORTED_CODECS:
         raise NotImplementedError(
@@ -206,6 +211,28 @@ def encode(t, codec: str, emitter=rle_emission):
                 torch.zeros(0, dtype=torch.int32, device=dev),
                 torch.zeros(0, dtype=torch.uint8, device=dev),
                 torch.zeros((), dtype=torch.int64, device=dev))
+    size = n + 3 * nb
+    out = torch.zeros(size + 1, dtype=torch.uint8, device=dev)
+    flags = torch.empty(nb, dtype=torch.uint8, device=dev)
+    dlens = torch.empty(nb, dtype=torch.int32, device=dev)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for lo in range(0, nb, ENCODE_BATCH):
+        hi = min(lo + ENCODE_BATCH, nb)
+        flags[lo:hi], dlens[lo:hi], used = _encode_blocks(
+            t[lo * B:min(hi * B, n)], codec, emitter, out, total, size)
+        total += used
+    return flags, dlens, out[:size], total
+
+
+def _encode_blocks(t, codec, emitter, out, base, size):
+    """Encode the blocks of the stream slice `t` (whole blocks but for the
+    stream's last) into `out` from offset `base` (an int64 device scalar);
+    writes past the framed bytes go to the sink slot `size`. Returns
+    (flags, dlens, bytes written)."""
+    import torch
+    dev = t.device
+    n = t.shape[0]
+    nb = -(-n // B)
     blkmat = torch.zeros(nb * B, dtype=torch.uint8, device=dev)
     blkmat[:n] = t
     blkmat = blkmat.view(nb, B)
@@ -225,6 +252,7 @@ def encode(t, codec: str, emitter=rle_emission):
     rle_buf.scatter_(1, torch.where(emit & (c0 < B), c0, sink).long(), run)
     rle_buf.scatter_(1, torch.where(emit & (c0 + 1 < B), c0 + 1,
                                     sink).long(), blkmat)
+    del rank, c0, sink, run
     use_rle = rle_lens < blens
     flags = use_rle.to(torch.uint8)
     dlens = torch.where(use_rle, rle_lens, blens)
@@ -243,16 +271,13 @@ def encode(t, codec: str, emitter=rle_emission):
     keep = colm < dlens[:, None]
     # framed-stream compaction (== oracle assemble_block_stream)
     block_lens = (3 + dlens).to(torch.int64)
-    offs = torch.cumsum(block_lens, 0) - block_lens
-    total = block_lens.sum()
-    size = n + 3 * nb
-    out = torch.zeros(size + 1, dtype=torch.uint8, device=dev)
+    offs = base + torch.cumsum(block_lens, 0) - block_lens
     out[offs] = flags
     out[offs + 1] = (dlens & 0xFF).to(torch.uint8)
     out[offs + 2] = (dlens >> 8).to(torch.uint8)
     dst = torch.where(keep, offs[:, None] + 3 + colm, size)
     out.scatter_(0, dst.reshape(-1), body.reshape(-1))
-    return flags, dlens, out[:size], total
+    return flags, dlens, block_lens.sum()
 
 
 def encode_stream(t_u8: np.ndarray, codec: str, device="cpu",

@@ -1,5 +1,6 @@
-"""The model zoo's dense attention families (``src/repro/models/model.py``)
-as plain functions over the JAX package's nested parameter dict.
+"""The model zoo's attention families, dense and MoE
+(``src/repro/models/model.py``), as plain functions over the JAX package's
+nested parameter dict.
 
     model = Model(cfg)
     params              = model.init(seed=0, device=None)
@@ -16,6 +17,14 @@ stage's repeats becomes a Python loop over the leading axis.
 
     loss, metrics       = model.loss(params, {"tokens": tokens})
 
+MoE stages route their MLP through ``models.moe.moe_apply`` (the JAX
+package's no-mesh route; ``moe_impl="shard_map"`` waits for the sharding
+slice): a prefill or training forward groups its B·S tokens in groups of
+up to 4,096, a decode step groups the batch, so the capacities differ as
+in JAX. ``loss`` adds ``aux_loss_weight · load_balance_loss + 1e-4 ·
+router_z_loss`` and reports the three aux values, each summed over the MoE
+layers.
+
 Deviations, each named where it happens: ``decode_step`` writes the new
 key/value into the cache tensors in place and returns the same tree (the
 JAX version returns new arrays); ``init`` draws from a ``torch.Generator``
@@ -23,8 +32,9 @@ JAX version returns new arrays); ``init`` draws from a ``torch.Generator``
 with ``convert.params_from_jax``); the training forward keeps every
 block's activations for the backward pass (no per-layer remat: the JAX
 ``remat_policy`` is a memory knob of its compiled step, and full-width
-gemma3-1b fits the card without it). MoE, SSM and RG-LRU blocks and
-``encode`` raise ``NotImplementedError``: they come with later slices.
+gemma3-1b fits the card without it). SSM and RG-LRU blocks and
+``encode`` raise ``NotImplementedError``: they come with the SSM, RG-LRU and
+encoder slice.
 """
 from __future__ import annotations
 
@@ -35,16 +45,16 @@ from ..devices import resolve_device
 from .layers import (_softcap, apply_norm, apply_rope, attention_decode,
                      attention_full, attention_local, mlp_apply, rmsnorm,
                      rope_table)
+from .moe import moe_apply
 
 ATTN = (ATTN_GLOBAL, ATTN_LOCAL)
 
 
 def _later(what: str):
     raise NotImplementedError(
-        f"{what} is not ported yet: the port's Model covers the dense "
-        "attention families (serving and training); MoE, SSM and RG-LRU "
-        "blocks and the encoder come with the model-family slices "
-        "(ROADMAP.md)")
+        f"{what} is not ported yet: the port's Model covers the attention "
+        "families, dense and MoE (serving and training); SSM and RG-LRU "
+        "blocks and the encoder come with the next slice (ROADMAP.md)")
 
 
 def _unstack(tree, repeat: int) -> list:
@@ -70,8 +80,6 @@ class Model:
         self.cfg = cfg
         self.stages = build_stages(cfg)
         for stage in self.stages:
-            if stage.moe:
-                _later("a MoE stage")
             for kind in stage.kinds:
                 if kind not in ATTN:
                     _later(f"block kind {kind!r}")
@@ -90,13 +98,8 @@ class Model:
     def abstract_params(self):
         """The parameter tree as meta tensors (shapes and dtypes only), for
         a restore target."""
-        import torch
-
-        from ..state import _map, param_specs
-        dt = getattr(torch, self.cfg.dtype)
-        return _map(lambda spec: torch.empty(spec[0], dtype=dt,
-                                             device="meta"),
-                    param_specs(self.cfg))
+        from ..state import abstract_params
+        return abstract_params(self.cfg)
 
     # ------------------------------------------------------------------
     # blocks
@@ -157,16 +160,22 @@ class Model:
             o = attention_full(q, k, v, causal=cfg.causal, **common)
         return self._out(p, o), (k, v)
 
-    def _mlp_part(self, p, x):
+    def _mlp_part(self, p, x, moe):
+        """The block's MLP half: (y, aux); aux is the MoE's three values,
+        or empty for a dense MLP."""
         cfg = self.cfg
-        y = mlp_apply(p["mlp"], apply_norm(p["norm_mlp"], x, cfg), cfg)
+        h = apply_norm(p["norm_mlp"], x, cfg)
+        if moe:
+            y, aux = moe_apply(p["moe"], h, cfg)
+        else:
+            y, aux = mlp_apply(p["mlp"], h, cfg), {}
         if cfg.post_norm:
             y = apply_norm(p["norm_post_mlp"], y, cfg)
-        return y
+        return y, aux
 
-    def _block_sequence(self, p, x, kind, ropes, cache_len):
-        """One block over a full sequence: (x, this block's cache; None
-        when `cache_len` is None, as in training)."""
+    def _block_sequence(self, p, x, kind, moe, ropes, cache_len):
+        """One block over a full sequence: (x, aux, this block's cache;
+        None when `cache_len` is None, as in training)."""
         cfg = self.cfg
         h = apply_norm(p["norm_in"], x, cfg)
         o, (k, v) = self._attn_sequence(p, h, kind, ropes)
@@ -175,7 +184,8 @@ class Model:
         if cfg.post_norm:
             o = apply_norm(p["norm_post"], o, cfg)
         x = x + o
-        return x + self._mlp_part(p, x), new_cache
+        y, aux = self._mlp_part(p, x, moe)
+        return x + y, aux, new_cache
 
     def _build_attn_cache(self, kind, k, v, cache_len):
         """Prefill K/V → a decode cache of capacity cache_len: a ring
@@ -202,9 +212,10 @@ class Model:
             out[name] = c
         return out
 
-    def _block_decode(self, p, x, kind, cache, pos, ropes):
+    def _block_decode(self, p, x, kind, moe, cache, pos, ropes):
         """One block for a single token; writes the new key/value into
-        `cache` (this layer's views) in place."""
+        `cache` (this layer's views) in place. A MoE block's group is the
+        batch (its capacity is the decode step's own, as in JAX)."""
         cfg = self.cfg
         h = apply_norm(p["norm_in"], x, cfg)
         q, k, v = self._qkv(p, h, kind, ropes)
@@ -223,7 +234,7 @@ class Model:
         if cfg.post_norm:
             o = apply_norm(p["norm_post"], o, cfg)
         x = x + o
-        return x + self._mlp_part(p, x)
+        return x + self._mlp_part(p, x, moe)[0]
 
     # ------------------------------------------------------------------
     # stages (the JAX scan over stacked layers → a loop over the axis)
@@ -239,8 +250,9 @@ class Model:
                 layer_p = _index(sp, r)
                 new_c = {}
                 for j, kind in enumerate(stage.kinds):
-                    x, new_c[f"b{j}"] = self._block_sequence(
-                        layer_p[f"b{j}"], x, kind, ropes, cache_len)
+                    x, _, new_c[f"b{j}"] = self._block_sequence(
+                        layer_p[f"b{j}"], x, kind, stage.moe, ropes,
+                        cache_len)
                 per_layer.append(new_c)
             caches[f"stage_{si}"] = {
                 f"b{j}": {n: torch.stack([c[f"b{j}"][n] for c in per_layer])
@@ -249,13 +261,18 @@ class Model:
         return x, caches
 
     def _run_stages_train(self, params, x, positions):
+        """(x, aux): aux sums each MoE value over the MoE layers, as the
+        JAX scan's per-stage sums do."""
         ropes = self._ropes(positions)
+        aux_tot = {}
         for si, stage in enumerate(self.stages):
             for layer_p in _unstack(params[f"stage_{si}"], stage.repeat):
                 for j, kind in enumerate(stage.kinds):
-                    x, _ = self._block_sequence(layer_p[f"b{j}"], x, kind,
-                                                ropes, None)
-        return x
+                    x, aux, _ = self._block_sequence(
+                        layer_p[f"b{j}"], x, kind, stage.moe, ropes, None)
+                    for k, v in aux.items():
+                        aux_tot[k] = aux_tot[k] + v if k in aux_tot else v
+        return x, aux_tot
 
     def _run_stages_decode(self, params, cache, x, pos: int):
         import torch
@@ -266,7 +283,8 @@ class Model:
                 layer_p, layer_c = _index(sp, r), _index(sc, r)
                 for j, kind in enumerate(stage.kinds):
                     x = self._block_decode(layer_p[f"b{j}"], x, kind,
-                                           layer_c[f"b{j}"], pos, ropes)
+                                           stage.moe, layer_c[f"b{j}"], pos,
+                                           ropes)
         return x
 
     # ------------------------------------------------------------------
@@ -345,16 +363,18 @@ class Model:
         return caches
 
     def loss(self, params, batch):
-        """batch: {"tokens": (B, S) ints} → (loss, {"nll", "loss"}): the
-        mean next-token NLL over the first S−1 positions, through
-        ``chunked_xent`` in 512-token chunks."""
+        """batch: {"tokens": (B, S) ints} → (loss, metrics): the mean
+        next-token NLL over the first S−1 positions, through
+        ``chunked_xent`` in 512-token chunks, plus a MoE model's weighted
+        aux losses. Metrics: ``nll``, ``loss`` and, with MoE stages, the
+        three aux values."""
         import torch
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._embed(params, tokens)
         positions = torch.arange(S, device=x.device)
-        x = self._run_stages_train(params, x, positions)
+        x, aux = self._run_stages_train(params, x, positions)
         x = apply_norm(params["final_norm"], x, cfg)
         targets = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], dim=1)
         mask = torch.cat([torch.ones((B, S - 1), device=x.device),
@@ -362,8 +382,14 @@ class Model:
         xent_chunk = S if cfg.seq_shard_resid else 512
         nll = chunked_xent(x, self._head_weights(params), targets, mask,
                            softcap=cfg.final_softcap, chunk=xent_chunk)
-        metrics = {"nll": nll.detach(), "loss": nll.detach()}
-        return nll, metrics
+        loss = nll
+        if cfg.moe is not None and "load_balance_loss" in aux:
+            loss = loss + cfg.moe.aux_loss_weight * aux["load_balance_loss"] \
+                + 1e-4 * aux["router_z_loss"]
+        metrics = {"nll": nll.detach(),
+                   **{k: v.detach() for k, v in aux.items()},
+                   "loss": loss.detach()}
+        return loss, metrics
 
     def encode(self, params, feats):
         _later("Model.encode (the encoder family)")

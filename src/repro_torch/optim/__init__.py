@@ -1,18 +1,11 @@
-"""Optimizers (``src/repro/optim`` on PyTorch): AdamW, the learning-rate
-schedule and ``make_optimizer``. Adafactor and the int8 gradient codec
-(``compress``) come with a later slice."""
+"""Optimizers (``src/repro/optim`` on PyTorch): AdamW, Adafactor, the
+learning-rate schedule and ``make_optimizer``; ``compress`` holds the int8
+error-feedback gradient codec."""
+from .adafactor import Adafactor
 from .adamw import AdamW, clip_by_global_norm, global_norm
 
 __all__ = ["Adafactor", "AdamW", "clip_by_global_norm", "global_norm",
            "lr_schedule", "make_optimizer"]
-
-
-class Adafactor:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Adafactor is not ported yet: it comes with the slice of the "
-            "MoE families that train with it (ROADMAP.md); gemma3-1b and "
-            "the dense families train with AdamW")
 
 
 def make_optimizer(cfg):

@@ -1,17 +1,19 @@
 """The training state a model configuration implies, built on the device.
 
-``train_state`` returns the nested dict ``{"opt": {"count", "m", "v"},
-"params", "rng", "step"}`` with exactly the leaf names, shapes and dtypes of
-the JAX package's ``init_train_state(Model(cfg), AdamW(), key)``: the
+``train_state`` returns the nested dict ``{"opt", "params", "rng",
+"step"}`` with exactly the leaf names, shapes and dtypes of the JAX
+package's ``init_train_state(Model(cfg), make_optimizer(cfg), key)``: the
 parameter tree of ``Model.init`` (stages from ``configs.base.build_stages``,
-stacked along a leading repeat axis), AdamW's float32 ``m``/``v`` moments
-and int32 ``count``, an int32 ``step`` and the two-word uint32 ``rng``.
+stacked along a leading repeat axis; a MoE block's router in float32 among
+the ``cfg.dtype`` leaves), the optimizer's state (AdamW's float32 ``m``/``v``
+and int32 ``count``; Adafactor's float32 ``f/**/{v_row, v_col}`` or ``v``
+and its ``count``), an int32 ``step`` and the two-word uint32 ``rng``.
 
 Values come from a seeded ``torch.Generator`` on the device: parameters at
 their init scales (normal × the JAX init's scale, norms at their init
-value), and the moments filled with noise of a trained run's magnitude —
-zeros would let the codec compress them to nothing: this is the state a
-trained run holds, at full width, without training it
+value), and the optimizer's moments filled with noise of a trained run's
+magnitude — zeros would let the codec compress them to nothing: this is
+the state a trained run holds, at full width, without training it
 (``core.split_state.init_train_state`` gives a fresh run's state, zero
 moments, for the trainer).
 """
@@ -27,45 +29,67 @@ V_SCALE = 2e-3          # v ~ (V_SCALE · N(0,1))²
 
 
 def _norm(cfg: ModelConfig, d: int) -> dict:
+    dt = cfg.dtype
     if cfg.norm == "rmsnorm":
-        return {"scale": ((d,), "zeros")}       # (1+s) convention
-    p = {"scale": ((d,), "ones")}
+        return {"scale": ((d,), "zeros", dt)}       # (1+s) convention
+    p = {"scale": ((d,), "ones", dt)}
     if cfg.use_bias:
-        p["bias"] = ((d,), "zeros")
+        p["bias"] = ((d,), "zeros", dt)
     return p
 
 
 def _mlp(cfg: ModelConfig, d: int, ff: int) -> dict:
+    dt = cfg.dtype
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(ff)
     if cfg.gated_mlp:
-        p = {"wg": ((d, ff), s_in), "wu": ((d, ff), s_in),
-             "wd": ((ff, d), s_out)}
+        p = {"wg": ((d, ff), s_in, dt), "wu": ((d, ff), s_in, dt),
+             "wd": ((ff, d), s_out, dt)}
     else:
-        p = {"wi": ((d, ff), s_in), "wd": ((ff, d), s_out)}
+        p = {"wi": ((d, ff), s_in, dt), "wd": ((ff, d), s_out, dt)}
         if cfg.use_bias:
-            p["bi"] = ((ff,), "zeros")
+            p["bi"] = ((ff,), "zeros", dt)
     if cfg.use_bias:
-        p["bd"] = ((d,), "zeros")
+        p["bd"] = ((d,), "zeros", dt)
     return p
 
 
-def _block(cfg: ModelConfig, kind: str) -> dict:
-    if kind not in (ATTN_GLOBAL, ATTN_LOCAL) or cfg.moe is not None:
-        raise NotImplementedError(f"block kind {kind!r} (moe="
-                                  f"{cfg.moe is not None}) is not ported")
+def _moe(cfg: ModelConfig, d: int) -> dict:
+    """``repro/models/moe.py::init_moe``: the router is float32 whatever
+    ``cfg.dtype`` is; the expert stacks are (E, d, f) and (E, f, d)."""
+    m, dt = cfg.moe, cfg.dtype
+    E, f = m.n_experts, m.d_expert
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    p = {"router": ((d, E), s_in, "float32"),
+         "wg": ((E, d, f), s_in, dt), "wu": ((E, d, f), s_in, dt),
+         "wd": ((E, f, d), s_out, dt)}
+    if m.n_shared_experts:
+        p["shared"] = _mlp(cfg, d, f * m.n_shared_experts)
+    return p
+
+
+def _block(cfg: ModelConfig, kind: str, moe: bool) -> dict:
+    if kind not in (ATTN_GLOBAL, ATTN_LOCAL):
+        raise NotImplementedError(f"block kind {kind!r} is not ported")
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = cfg.dtype
     s = 1.0 / math.sqrt(d)
     p = {"norm_in": _norm(cfg, d),
-         "q": ((d, H, hd), s), "k": ((d, K, hd), s), "v": ((d, K, hd), s),
-         "o": ((H, hd, d), 1.0 / math.sqrt(H * hd))}
+         "q": ((d, H, hd), s, dt), "k": ((d, K, hd), s, dt),
+         "v": ((d, K, hd), s, dt),
+         "o": ((H, hd, d), 1.0 / math.sqrt(H * hd), dt)}
     if cfg.use_bias:
-        p.update(q_b=((H, hd), "zeros"), k_b=((K, hd), "zeros"),
-                 v_b=((K, hd), "zeros"), o_b=((d,), "zeros"))
+        p.update(q_b=((H, hd), "zeros", dt), k_b=((K, hd), "zeros", dt),
+                 v_b=((K, hd), "zeros", dt), o_b=((d,), "zeros", dt))
     if cfg.qk_norm:
         p["q_norm"] = _norm(cfg, hd)
         p["k_norm"] = _norm(cfg, hd)
     p["norm_mlp"] = _norm(cfg, d)
-    p["mlp"] = _mlp(cfg, d, cfg.d_ff)
+    if moe:
+        p["moe"] = _moe(cfg, d)
+    else:
+        # the dense-first layers of a MoE config (kimi-k2) take dense_d_ff
+        ff = cfg.d_ff if cfg.moe is None else (cfg.moe.dense_d_ff or cfg.d_ff)
+        p["mlp"] = _mlp(cfg, d, ff)
     if cfg.post_norm:
         p["norm_post"] = _norm(cfg, d)
         p["norm_post_mlp"] = _norm(cfg, d)
@@ -74,21 +98,23 @@ def _block(cfg: ModelConfig, kind: str) -> dict:
 
 def _stack(tree: dict, repeat: int) -> dict:
     return {k: _stack(v, repeat) if isinstance(v, dict)
-            else ((repeat,) + v[0], v[1]) for k, v in tree.items()}
+            else ((repeat,) + v[0],) + v[1:] for k, v in tree.items()}
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    """Nested dict of (shape, init) per parameter leaf, where init is a
-    normal's scale, ``"zeros"`` or ``"ones"`` — ``Model.init``'s tree."""
-    p = {"embed": ((cfg.vocab_size, cfg.d_model), 0.02),
+    """Nested dict of (shape, init, dtype) per parameter leaf, where init
+    is a normal's scale, ``"zeros"`` or ``"ones"`` and dtype a torch dtype
+    name — ``Model.init``'s tree."""
+    dt = cfg.dtype
+    p = {"embed": ((cfg.vocab_size, cfg.d_model), 0.02, dt),
          "final_norm": _norm(cfg, cfg.d_model)}
     if cfg.positional == "conv":
-        p["pos_conv"] = {"w": ((128, cfg.d_model), 0.02)}
+        p["pos_conv"] = {"w": ((128, cfg.d_model), 0.02, dt)}
     if not cfg.tie_embeddings:
         p["lm_head"] = ((cfg.d_model, cfg.vocab_size),
-                        1.0 / math.sqrt(cfg.d_model))
+                        1.0 / math.sqrt(cfg.d_model), dt)
     for si, stage in enumerate(build_stages(cfg)):
-        pattern = {f"b{j}": _block(cfg, kind)
+        pattern = {f"b{j}": _block(cfg, kind, stage.moe)
                    for j, kind in enumerate(stage.kinds)}
         p[f"stage_{si}"] = _stack(pattern, stage.repeat)
     return p
@@ -112,14 +138,14 @@ def init_params(cfg: ModelConfig, device=None, generator=None, *,
                 seed: int = 0) -> dict:
     """``Model.init``'s parameter tree for `cfg` on `device` (``None`` →
     CUDA), drawn from `generator` (seeded with `seed` when None): normal ×
-    the JAX init's scale in f32, then cast to ``cfg.dtype``."""
+    the JAX init's scale in f32, then cast to the leaf's dtype."""
     import torch
     dev = resolve_device(device)
     g = _generator(dev, generator, seed)
-    pdt = getattr(torch, cfg.dtype)
 
     def init(spec):
-        shape, how = spec
+        shape, how, dt = spec
+        pdt = getattr(torch, dt)
         if how == "zeros":
             return torch.zeros(shape, dtype=pdt, device=dev)
         if how == "ones":
@@ -130,27 +156,44 @@ def init_params(cfg: ModelConfig, device=None, generator=None, *,
     return _map(init, param_specs(cfg))
 
 
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as meta tensors (shapes and dtypes only)."""
+    import torch
+    return _map(lambda spec: torch.empty(spec[0], dtype=getattr(
+        torch, spec[2]), device="meta"), param_specs(cfg))
+
+
 def train_state(cfg: ModelConfig, device=None, generator=None, *,
                 seed: int = 0, step: int = 0) -> dict:
     """The full training state of `cfg` on `device` (``None`` → CUDA),
     from `generator` (a ``torch.Generator`` on that device; seeded with
-    `seed` when None)."""
+    `seed` when None), with the state tree of ``optim.make_optimizer(cfg)``:
+    its ``count`` is `step`, its float leaves noise — AdamW's ``m`` signed,
+    every second moment squared."""
     import torch
+
+    from .optim import make_optimizer
     dev = resolve_device(device)
     g = _generator(dev, generator, seed)
-
-    def randn(shape):
-        return torch.randn(shape, generator=g, device=dev,
-                           dtype=torch.float32)
-
-    specs = param_specs(cfg)
     params = init_params(cfg, dev, g)
-    m = _map(lambda s: randn(s[0]).mul_(M_SCALE), specs)
-    v = _map(lambda s: randn(s[0]).mul_(V_SCALE).square_(), specs)
+
+    def fill(tree, first):
+        out = {}
+        for k, t in tree.items():       # the optimizer's insertion order
+            if isinstance(t, dict):
+                out[k] = fill(t, first or k == "m")
+            elif k == "count":
+                out[k] = torch.tensor(step, dtype=torch.int32, device=dev)
+            else:
+                r = torch.randn(t.shape, generator=g, device=dev,
+                                dtype=torch.float32)
+                out[k] = r.mul_(M_SCALE) if first or k == "m" \
+                    else r.mul_(V_SCALE).square_()
+        return out
+
     return {
         "params": params,
-        "opt": {"m": m, "v": v,
-                "count": torch.tensor(step, dtype=torch.int32, device=dev)},
+        "opt": fill(make_optimizer(cfg).init(abstract_params(cfg)), False),
         "step": torch.tensor(step, dtype=torch.int32, device=dev),
         # uint32 has few kernels: build the zeros as int32 and reinterpret
         "rng": torch.zeros(2, dtype=torch.int32, device=dev)

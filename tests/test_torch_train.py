@@ -130,10 +130,10 @@ def test_adamw_update_matches_jax():
 
 def test_make_optimizer_and_adafactor():
     assert isinstance(make_optimizer(CFG), AdamW)
-    with pytest.raises(NotImplementedError, match="later|slice"):
-        Adafactor()
-    with pytest.raises(NotImplementedError):
-        make_optimizer(dataclasses.replace(CFG, optimizer="adafactor"))
+    assert isinstance(Adafactor(), Adafactor)
+    assert isinstance(
+        make_optimizer(dataclasses.replace(CFG, optimizer="adafactor")),
+        Adafactor)
 
 
 # ---------------------------------------------------------------------------
