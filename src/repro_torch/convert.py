@@ -14,13 +14,8 @@ import numpy as np
 
 from .core.codec import dtype_name
 from .core.save_path import to_host
+from .core.split_state import map_leaves
 from .devices import resolve_device
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def from_jax_state(np_tree, device=None):
@@ -40,7 +35,7 @@ def from_jax_state(np_tree, device=None):
                 .view(torch.uint32)
         return torch.from_numpy(a).to(dev)
 
-    return _map(leaf, np_tree)
+    return map_leaves(leaf, np_tree)
 
 
 def params_from_jax(np_params, device=None):
@@ -56,4 +51,4 @@ def to_numpy_state(state):
     """Nested dict of tensors → nested dict of host numpy arrays; bfloat16
     leaves come back as ``core.codec.BF16`` (their uint16 bit pattern,
     logical dtype ``bfloat16``)."""
-    return _map(to_host, state)
+    return map_leaves(to_host, state)

@@ -40,6 +40,14 @@ def leaf_paths(tree, prefix: str = ""):
     return out
 
 
+def map_leaves(fn, tree):
+    """`fn` over the leaves of a nested dict (anything that is not a dict
+    is a leaf), keeping its keys."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def tree_unflatten(template, leaves):
     """Rebuild `template`'s nested structure with `leaves` (in
     ``leaf_paths`` order) in place of its leaves."""

@@ -24,8 +24,7 @@ from __future__ import annotations
 
 import math
 
-from ..core.split_state import leaf_paths
-from ..state import _map
+from ..core.split_state import leaf_paths, map_leaves
 
 
 class Adafactor:
@@ -56,7 +55,7 @@ class Adafactor:
             return {"v": zeros(p.shape)}
 
         dev = next(t for _, t in leaf_paths(params)).device
-        return {"f": _map(leaf, params),
+        return {"f": map_leaves(leaf, params),
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
     def _leaf(self, p, g, s, lr):

@@ -14,8 +14,7 @@ bytes.
 """
 from __future__ import annotations
 
-from ..core.split_state import leaf_paths, tree_unflatten
-from ..state import _map
+from ..core.split_state import leaf_paths, map_leaves, tree_unflatten
 
 BLOCK = 256
 
@@ -48,7 +47,7 @@ class GradCompression:
 
     def init(self, params):
         import torch
-        return {"error": _map(
+        return {"error": map_leaves(
             lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                   device=p.device)
             if p.numel() >= self.min_size else None, params)}

@@ -22,6 +22,7 @@ from __future__ import annotations
 import math
 
 from .configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig, build_stages
+from .core.split_state import map_leaves
 from .devices import resolve_device
 
 M_SCALE = 1e-3          # |m| of a trained AdamW run, roughly
@@ -120,11 +121,6 @@ def param_specs(cfg: ModelConfig) -> dict:
     return p
 
 
-def _map(fn, tree: dict) -> dict:
-    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
-
-
 def _generator(dev, generator, seed: int):
     import torch
     if generator is not None:
@@ -153,13 +149,13 @@ def init_params(cfg: ModelConfig, device=None, generator=None, *,
         return torch.randn(shape, generator=g, device=dev,
                            dtype=torch.float32).mul_(how).to(pdt)
 
-    return _map(init, param_specs(cfg))
+    return map_leaves(init, param_specs(cfg))
 
 
 def abstract_params(cfg: ModelConfig) -> dict:
     """The parameter tree as meta tensors (shapes and dtypes only)."""
     import torch
-    return _map(lambda spec: torch.empty(spec[0], dtype=getattr(
+    return map_leaves(lambda spec: torch.empty(spec[0], dtype=getattr(
         torch, spec[2]), device="meta"), param_specs(cfg))
 
 
