@@ -18,6 +18,8 @@
     python3 chip_smoke.py --zoo-only     # build, parity, the zoo phase
                                          #   alone (needs 30 GB of disk
                                          #   under build/)
+    python3 chip_smoke.py --families-only  # build, parity, the families
+                                         #   phase alone (15 GB of disk)
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
@@ -110,7 +112,29 @@
    peak device bytes, ``drop_fraction``, save and restore times and bytes,
    and the largest leaf. The phase needs 30 GB of disk under ``build/``
    (``build/chip_smoke_zoo``, removed when it ends).
-8. Prints one JSON line of per-kernel numbers (CUDA-event times at each
+8. The SSM, RG-LRU and encoder families: K8 at their path shapes
+   (``FAMILY_ATTN``: hubert-xlarge's head dim 80, non-causal, which runs
+   the D 128 instantiation over maps of inner dim 80; recurrentgemma-9b's
+   MQA window of 2,048 at S 4,096) within ``attn_err``'s bound, K7 at
+   their widths (``FAMILY_RMS``: 1,536, mamba2's gated norm at 3,072,
+   4,096), and the reduced configs on the card against the CPU. Then
+   ``serve.run`` serves mamba2-780m at full width and full depth (48
+   layers; 8 requests of 2,048-token prompts, 64 new tokens) and
+   recurrentgemma-9b at full width, 6 of 38 layers (4,096-token prompts,
+   past the window), each uninterrupted, preempted at token 32 and
+   resumed: the resumed tokens must equal the uninterrupted run's. Then
+   ``preempt_resume`` trains mamba2-780m (12 of 48 layers, SSD chunks of
+   256) and hubert-xlarge (12 of 48 layers, encoder batches) at full
+   width with AdamW, batch 4 × 1024: finite losses, and the resumed run's
+   ``params_digest`` equal to run A's. Launches are read per segment: K7
+   (and K8 where there is attention) in the serves and steps, K1-K3 in
+   the training saves, K4 in the restores. K8 and K7 are timed at the
+   families' shapes (``FAMILY_K8``, ``FAMILY_RMS``). One
+   ``{"families": ...}`` JSON line carries the prefill, decode, save and
+   restore numbers of each serve and the step, tokens/s, peak and
+   ``restore_to_first_step_s`` of each training run. Its checkpoints go
+   to ``build/chip_smoke_families`` (removed when it ends).
+9. Prints one JSON line of per-kernel numbers (CUDA-event times at each
    path's largest shapes, bounds from the bytes or operations each kernel
    needs, the plain version's and a library call's time; K7 also at every
    shape of ``K7_SHAPES`` with the L2 cold, each route forced; K8 also at the
@@ -440,8 +464,10 @@ ATTN_CASES = [
 # from a generator of their own, so that K7's and the cases above keep
 # their inputs)
 ATTN_EDGES = [
-    *[(1, 200, 200, 4, 2, d, True, 0, 0.0) for d in (16, 32, 64, 128, 256)],
-    *[(2, 150, 150, 4, 1, d, False, 0, 20.0) for d in (16, 64, 256)],
+    *[(1, 200, 200, 4, 2, d, True, 0, 0.0) for d in range(16, 257, 16)],
+    *[(2, 150, 150, 4, 1, d, False, 0, 20.0) for d in (16, 64, 80, 256)],
+    (1, 130, 130, 4, 4, 80, False, 40, 0.0),
+    (4, 1024, 1024, 16, 16, 80, False, 0, 0.0),    # hubert-xlarge's shape
     (1, 1000, 1000, 4, 1, 256, True, 0, 0.0),
     (1, 2047, 2047, 4, 1, 256, True, 512, 0.0),
     (1, 100, 300, 4, 1, 128, False, 0, 0.0),
@@ -997,53 +1023,56 @@ def serving(dev, card: str, profile: bool = False):
     return stats, launches
 
 
-# K8's timed shapes: (B, S, H, K, D, window), all causal: the serving
-# prefill's global and local layers and the training step's
+# K8's timed shapes: (B, S, H, K, D, window[, causal]), causal unless
+# said: the serving prefill's global and local layers and the training
+# step's
 K8_SHAPES = {"serve": (8, 2048, 4, 1, 256, 0),
              "serve_window512": (8, 2048, 4, 1, 256, 512),
              "train": (4, 1024, 4, 1, 256, 0),
              "train_window512": (4, 1024, 4, 1, 256, 512)}
 
 
-def k8_shapes(dev, g) -> dict:
-    """K8 (bf16) at each ``K8_SHAPES`` entry: CUDA-event ms at the
-    launcher's choice of block_q and at each forced one, the bound from
-    the unmasked pairs' flops (and the bytes: q, k, v read, out written
-    once), the achieved TFLOP/s, and the library call's ms
-    (``F.scaled_dot_product_attention``: ``is_causal``, or a band mask
-    for the window)."""
+def k8_shapes(dev, g, shapes: dict | None = None) -> dict:
+    """K8 (bf16) at each entry of `shapes` (default ``K8_SHAPES``):
+    CUDA-event ms at the launcher's choice of block_q and at each forced
+    one, the bound from the unmasked pairs' flops (and the bytes: q, k, v
+    read, out written once), the achieved TFLOP/s, and the library call's
+    ms (``F.scaled_dot_product_attention``: ``is_causal``, no mask without
+    causality, or a band mask for the window)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa
     bf = torch.bfloat16
     out = {}
-    for name, (B, S, H, K, D, window) in K8_SHAPES.items():
+    for name, (B, S, H, K, D, window, *c) in (shapes or K8_SHAPES).items():
+        causal = c[0] if c else True
         q = torch.randn((B, S, H, D), generator=g, device=dev).to(bf)
         k = torch.randn((B, S, K, D), generator=g, device=dev).to(bf)
         v = torch.randn((B, S, K, D), generator=g, device=dev).to(bf)
-        flops = 4 * D * B * H * fa.unmasked_pairs(S, S, True, window)
+        flops = 4 * D * B * H * fa.unmasked_pairs(S, S, causal, window)
         moved = (2 * q.numel() + k.numel() + v.numel()) * 2
         by_ops = flops / BF16_FLOPS > moved / HBM_BYTES_PER_S
-        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
                                                 window=window),
                      iters=20, warmup=2)
         by_bq = {str(bq): time_ms(
-            lambda: fa.flash_attention(q, k, v, causal=True, window=window,
+            lambda: fa.flash_attention(q, k, v, causal=causal, window=window,
                                        block_q=bq), iters=20, warmup=2)
             for bq in fa.BLOCK_QS}
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
         if window:
-            band = fa._mask(S, S, True, window, dev)
+            band = fa._mask(S, S, causal, window, dev)
             lib = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=band, enable_gqa=True), iters=20,
                 warmup=2)
         else:
             lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), iters=20,
+                qt, kt, vt, is_causal=causal, enable_gqa=True), iters=20,
                 warmup=2)
         out[name] = {
-            "shape": [B, S, H, K, D], "window": window, "ms": ms,
+            "shape": [B, S, H, K, D], "window": window, "causal": causal,
+            "kernel_dim": fa.kernel_dim(D), "ms": ms,
             "ms_by_block_q": by_bq, "library_ms": lib,
             "bound_ms": max(flops / BF16_FLOPS,
                             moved / HBM_BYTES_PER_S) * 1e3,
@@ -1159,8 +1188,9 @@ def time_graph_ms(fn, sets: list, iters: int) -> float:
 
 
 def k7_shapes(dev, g, kernels: dict | None = None,
-              plain: bool = True) -> dict:
-    """K7 (bf16) at each ``K7_SHAPES`` entry, the L2 cold, device ms a call
+              plain: bool = True, shapes: dict | None = None) -> dict:
+    """K7 (bf16) at each entry of `shapes` (default ``K7_SHAPES``), the L2
+    cold, device ms a call
     inside a CUDA graph: the launcher's plan (``ms``), each function of
     `kernels` (name → fn(x, scale); default: each route forced where it
     runs), the plain version, the library call (``F.rms_norm`` with weight
@@ -1177,7 +1207,7 @@ def k7_shapes(dev, g, kernels: dict | None = None,
         kernels = {r: (lambda x, s, r=r: rn.rmsnorm_fused(x, s, route=r))
                    for r in ("stream", "warp")}
     out = {}
-    for name, (n, d) in K7_SHAPES.items():
+    for name, (n, d) in (shapes or K7_SHAPES).items():
         sets = rotating_inputs(dev, g, n, d)
         sc = (torch.randn((d,), generator=g, device=dev) * 0.1).to(bf)
         w = 1.0 + sc
@@ -2221,6 +2251,278 @@ def zoo(dev, card: str, profile: bool = False) -> dict:
     return stats
 
 
+# ---------------------------------------------------------------------------
+# phase 8 — the SSM, RG-LRU and encoder families
+# ---------------------------------------------------------------------------
+
+# served at full width: (layers, prompt length); mamba2-780m at its full
+# depth of 48, recurrentgemma-9b at 6 of 38 (two repeats of RG-LRU, RG-LRU,
+# local attention); prompts past recurrentgemma's window of 2,048, so that
+# the local layers' ring wraps
+FAMILY_SERVE = {"mamba2-780m": (48, 2048), "recurrentgemma-9b": (6, 4096)}
+# trained at full width through ``preempt_resume``: layers of 48
+FAMILY_TRAIN = {"mamba2-780m": 12, "hubert-xlarge": 12}
+# K8 at the families' path shapes, bf16: (B, S, H, K, D, window, causal);
+# hubert's head dim 80 runs the D 128 instantiation (``kernel_dim``)
+FAMILY_ATTN = {"hubert-xlarge": (4, 1024, 16, 16, 80, 0, False),
+               "recurrentgemma-9b_local": (2, 4096, 16, 1, 256, 2048, True)}
+FAMILY_K8 = {"hubert_train": (4, 1024, 16, 16, 80, 0, False),
+             "recurrentgemma_serve": (8, 4096, 16, 1, 256, 2048, True)}
+# K7 at the families' widths: (rows, D) of the serving prefills' block
+# norms and mamba2's gated norm over d_inner
+FAMILY_RMS = {"mamba2-780m": (8 * 2048, 1536),
+              "mamba2-780m_gated": (8 * 2048, 3072),
+              "recurrentgemma-9b": (8 * 4096, 4096)}
+FAMILY_MIN_FREE_BYTES = 15e9
+
+
+def families_parity(dev) -> dict:
+    """K8 and K7 against their plain versions at the families' path shapes
+    (bf16, ``ATTN_TOL``/``RMS_TOL``; K8 also within ``attn_err``'s bound);
+    where a row sets a window, the plain output without it must fail that
+    bound. Then the reduced configs on the card against the CPU
+    (``family_reference``)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rn
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+    bf = torch.bfloat16
+    worst = {}
+    for name, (B, S, H, K, D, window, causal) in FAMILY_ATTN.items():
+        q, k, v = (torch.randn((B, S, n, D), generator=g, device=dev).to(bf)
+                   for n in (H, K, K))
+        kw = dict(causal=causal, window=window)
+        ref = fa.flash_attention_plain(q, k, v, **kw)
+        err, rel = attn_err(fa.flash_attention(q, k, v, **kw), ref)
+        if not (err <= ATTN_TOL["bfloat16"] and rel <= 1.0):
+            fail(f"K8 at {name} {(B, S, H, K, D)} {kw}: max abs err {err} "
+                 f"(> {ATTN_TOL['bfloat16']}?), {rel} of the relative bound")
+        worst[f"k8_{name}"] = err
+        worst[f"k8_{name}_of_bound"] = rel
+        if window:
+            _, moved = attn_err(fa.flash_attention_plain(
+                q, k, v, causal=causal, window=0), ref)
+            if not moved > 1.0:
+                fail(f"K8 at {name}: the plain output without the window is "
+                     f"within the bound ({moved} of it)")
+            worst[f"k8_{name}_no_window_of_bound"] = moved
+        del q, k, v, ref
+        torch.cuda.empty_cache()
+    for name, (n, d) in FAMILY_RMS.items():
+        x = torch.randn((n, d), generator=g, device=dev).to(bf)
+        sc = (torch.randn((d,), generator=g, device=dev) * 0.1).to(bf)
+        err = (rn.rmsnorm_fused(x, sc).float()
+               - rn.rmsnorm_plain(x, sc).float()).abs().max().item()
+        if not err <= RMS_TOL["bfloat16"]:
+            fail(f"K7 at {name} {(n, d)}: max abs err {err} > "
+                 f"{RMS_TOL['bfloat16']}")
+        worst[f"k7_{name}"] = err
+        del x
+    say(f"families parity: K8 at {len(FAMILY_ATTN)} and K7 at "
+        f"{len(FAMILY_RMS)} path shapes within tolerance; worst "
+        f"{json.dumps(worst)}")
+    worst["reference"] = family_reference(dev)
+    return worst
+
+
+def family_reference(dev, atol: float = 1e-4) -> dict:
+    """The reduced mamba2-780m and recurrentgemma-9b (f32) on the card —
+    norms and prefill attention through K7/K8 — against the same weights
+    on the CPU (plain versions): prefill and four decode steps give the
+    same logits within `atol` and the same greedy tokens; the reduced
+    hubert-xlarge's ``encode`` gives the same logits within `atol`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import Model
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in ("mamba2-780m", "recurrentgemma-9b", "hubert-xlarge"):
+        cfg = reduced(get_config(arch))
+        model = Model(cfg)
+        params = {"cpu": model.init(seed=3, device=cpu)}
+        params["gpu"] = _to(params["cpu"], dev)
+        rng = np.random.default_rng(3)
+        if cfg.family == "encoder":
+            inp = torch.from_numpy(rng.standard_normal(
+                (2, 48, cfg.d_model), dtype=np.float32))
+        else:
+            inp = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (4, 32), dtype=np.int32))
+        runs = {}
+        for key, d in (("cpu", cpu), ("gpu", dev)):
+            if cfg.family == "encoder":
+                runs[key] = model.encode(params[key], inp.to(d)).cpu()
+                continue
+            logits, cache = model.prefill(params[key], inp.to(d),
+                                          cache_len=40)
+            seq = [logits.cpu()]
+            tok = logits.argmax(-1).int()
+            for _ in range(4):
+                logits, cache = model.decode_step(params[key], cache, tok)
+                seq.append(logits.cpu())
+                tok = logits.argmax(-1).int()
+            runs[key] = torch.stack(seq)
+        err = (runs["gpu"] - runs["cpu"]).abs().max().item()
+        if not (torch.isfinite(runs["gpu"]).all() and err <= atol
+                and torch.equal(runs["gpu"].argmax(-1),
+                                runs["cpu"].argmax(-1))):
+            fail(f"reduced {arch} on the card disagrees with the CPU: max "
+                 f"abs logit err {err} (tolerance {atol})")
+        out[arch] = err
+    say(f"families model: reduced mamba2/recurrentgemma prefill + 4 decode "
+        f"steps and hubert encode on the card match the CPU plain versions "
+        f"(max abs logit err {json.dumps(out)})")
+    return out
+
+
+def family_serve(dev, arch: str, layers: int, prompt_len: int,
+                 root: Path, card: str, profile: bool = False) -> dict:
+    """``serve.run`` of `arch` at full width, `layers` deep: 8 requests of
+    `prompt_len` tokens, 64 new, greedy; uninterrupted, then preempted at
+    token 32, then resumed. The resumed tokens must equal the
+    uninterrupted run's; K7 (and K8 where the config has attention) must
+    launch in the uninterrupted run. Launches are read per run. `profile`
+    traces the uninterrupted run (device and host)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    kw = dict(SERVE, prompt_len=prompt_len, n_layers=layers)
+    runs, launches = {}, {}
+    t0 = time.monotonic()
+    for name, extra in (("uninterrupted", {}), ("preempted",
+                                                {"preempt_at": PREEMPT_AT}),
+                        ("resumed", {})):
+        wd = root / arch / ("full" if name == "uninterrupted" else "pre")
+        reset_counts()
+        with DeviceProfile(profile and name == "uninterrupted",
+                           host=True) as prof:
+            t1 = time.monotonic()
+            runs[name] = serve.run(arch, workdir=str(wd), device=dev, **kw,
+                                   **extra)
+            runs[name]["wall_s"] = time.monotonic() - t1
+        if profile and name == "uninterrupted":
+            runs[name]["device"] = prof.summary(runs[name]["wall_s"])
+        launches[name] = read_counts()
+    full, pre, res = runs["uninterrupted"], runs["preempted"], runs["resumed"]
+    cfg = get_config(arch)
+    toks = full["tokens"]
+    if not (full["status"] == res["status"] == "completed"
+            and pre["status"] == "preempted"
+            and toks.shape == (kw["n_requests"], kw["gen_len"])
+            and ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"{arch} serving ended {full['status']}/{pre['status']}/"
+             f"{res['status']} or gave tokens out of range")
+    if not np.array_equal(pre["tokens"][:, :PREEMPT_AT],
+                          toks[:, :PREEMPT_AT]):
+        fail(f"{arch}: the preempted run's tokens differ before the "
+             "preemption")
+    if not np.array_equal(res["tokens"], toks):
+        fail(f"{arch}: the resumed run's tokens differ from the "
+             "uninterrupted run's")
+    need = ["rmsnorm"] + (["flash_attention"]
+                          if any(k.startswith("attn") for k in
+                                 cfg.pattern) else [])
+    for k in need:
+        if launches["uninterrupted"][k] <= 0:
+            fail(f"kernel {k} was not launched serving {arch}")
+    stats = {"arch": arch, "n_layers": layers, "of_layers": cfg.n_layers,
+             "n_requests": kw["n_requests"], "prompt_len": prompt_len,
+             "gen_len": kw["gen_len"], "preempt_at": PREEMPT_AT,
+             "prefill_s": full["prefill_s"],
+             "decode_tok_per_s": full["tok_per_s"],
+             "decode_s": full["decode_s"],
+             "uninterrupted_s": full["wall_s"],
+             "save_s": pre["save_s"], "save_bytes": pre["save_bytes"],
+             "restore_s": res["restore_s"],
+             "resumed_decode_tok_per_s": res["tok_per_s"],
+             "phase_s": time.monotonic() - t0, "token_exact": True,
+             "launches": launches, "card": card}
+    if profile:
+        stats["device_uninterrupted"] = full["device"]
+    say(f"families serve {arch} ({layers} layers): prefill "
+        f"{stats['prefill_s']:.3f} s, decode {stats['decode_tok_per_s']:.1f}"
+        f" tok/s, preempt save {stats['save_s']:.3f} s / "
+        f"{stats['save_bytes']} bytes, restore {stats['restore_s']:.3f} s; "
+        f"resumed tokens identical; launches {json.dumps(launches)}")
+    return stats
+
+
+def families(dev, card: str, profile: bool = False) -> dict:
+    """The SSM, RG-LRU and encoder families at full width: ``family_serve``
+    of mamba2-780m (48 layers, 2,048-token prompts) and recurrentgemma-9b
+    (6 of 38 layers, 4,096-token prompts); ``preempt_resume`` of
+    mamba2-780m (12 of 48 layers: SSD chunks of 256, whose gradient the
+    reference gives as NaN) and hubert-xlarge (12 of 48 layers, encoder
+    batches, K8 at head dim 80) with AdamW, each resumed to the
+    uninterrupted run's ``params_digest``. Launches are read per segment:
+    K7/K8 in the serves and steps, K1-K3 in the training saves, K4 in the
+    restores."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    root = ROOT / "build" / "chip_smoke_families"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    if free < FAMILY_MIN_FREE_BYTES:
+        fail(f"only {free} bytes free under {root}; need "
+             f"{int(FAMILY_MIN_FREE_BYTES)} for the families' checkpoints")
+    os.environ["REPRO_CKPT_KEEPALIVE_S"] = "60"
+    out = {"serve": {}, "train": {}, "launches": {}, "card": card}
+    try:
+        for arch, (layers, prompt) in FAMILY_SERVE.items():
+            st = family_serve(dev, arch, layers, prompt, root, card,
+                              profile)
+            out["serve"][arch] = st
+            for seg, c in st["launches"].items():
+                out["launches"][f"{arch}_serve_{seg}"] = c
+            shutil.rmtree(root / arch, ignore_errors=True)
+            torch.cuda.empty_cache()
+        for arch, layers in FAMILY_TRAIN.items():
+            cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+            run, launches, state = preempt_resume(cfg, root / arch, dev,
+                                                  profile)
+            del state
+            torch.cuda.empty_cache()
+            run.update(arch=arch, n_layers=layers,
+                       of_layers=get_config(arch).n_layers, **TRAIN,
+                       steps=TRAIN_STEPS, preempt_after=PREEMPT_AFTER)
+            out["train"][arch] = run
+            for seg, c in launches.items():
+                out["launches"][f"{arch}_train_{seg}"] = c
+            steps = ["rmsnorm"] if cfg.norm == "rmsnorm" else []
+            if any(k.startswith("attn") for k in cfg.pattern):
+                steps.append("flash_attention")
+            for seg, kernels in (("steps", steps),
+                                 ("saves", ("gear_scan", "byteplane_fwd",
+                                            "rle_emit")),
+                                 ("restore", ("byteplane_inv",))):
+                for k in kernels:
+                    if launches[seg][k] <= 0:
+                        fail(f"kernel {k} was not launched in {arch}'s "
+                             f"training {seg}")
+            shutil.rmtree(root / arch, ignore_errors=True)
+    finally:
+        os.environ.pop("REPRO_CKPT_KEEPALIVE_S", None)
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(Path("/dev/shm") / f"repro-bb-{os.getpid()}",
+                      ignore_errors=True)
+        torch.cuda.empty_cache()
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    out["k8"] = k8_shapes(dev, g, FAMILY_K8)
+    out["k7"] = k7_shapes(dev, g, kernels={}, shapes=FAMILY_RMS)
+    say(f"families: K8 {json.dumps(out['k8'])}; K7 {json.dumps(out['k7'])}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
@@ -2282,6 +2584,18 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--families-only" in sys.argv[1:]:
+        parity_fam = families_parity(dev)
+        fam = families(dev, card, profile="--profile" in sys.argv[1:])
+        fam["parity"] = parity_fam
+        (out_dir / "chip_smoke_families.json").write_text(
+            json.dumps({"card": card, "families": fam}, indent=1))
+        say(card)
+        say(json.dumps({"families": fam}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--reliability-only" in sys.argv[1:]:
         rel = reliability(dev, card)
         say(card)
@@ -2306,6 +2620,10 @@ def main() -> int:
     parity_zoo = zoo_parity(dev)
     zoo_stats = zoo(dev, card, profile=profile)
     zoo_stats["parity"] = parity_zoo
+    torch.cuda.empty_cache()
+    parity_fam = families_parity(dev)
+    fam = families(dev, card, profile=profile)
+    fam["parity"] = parity_fam
     codec = ("byteplane_inv", "quantize_blocks", "dequantize_blocks")
     rows = kernel_table(dev, embed, {
         **launches, **{k: train_launches[k] for k in codec}})
@@ -2318,17 +2636,25 @@ def main() -> int:
             seg: c[row["name"]] for seg, c in rel["launches"].items()}
         row["launches_zoo"] = {
             seg: c[row["name"]] for seg, c in zoo_stats["launches"].items()}
+        row["launches_families"] = {
+            seg: c[row["name"]] for seg, c in fam["launches"].items()}
+        if row["name"] == "flash_attention":
+            row["families"] = fam["k8"]
+        elif row["name"] == "rmsnorm":
+            row["families"] = fam["k7"]
     stats["rans_stage"] = rans_stage_ms(dev)
     say(card)
     say(json.dumps({"reliability": rel}))
     say(json.dumps({"zoo": zoo_stats}))
+    say(json.dumps({"families": fam}))
     say(json.dumps({"main_path": stats, "serving": serve_stats,
                     "training": train_stats}))
     say(json.dumps({"kernels": rows}))
     (out_dir / "chip_smoke_report.json").write_text(
         json.dumps({"card": card, "main_path": stats,
                     "serving": serve_stats, "training": train_stats,
-                    "reliability": rel, "zoo": zoo_stats, "kernels": rows},
+                    "reliability": rel, "zoo": zoo_stats, "families": fam,
+                    "kernels": rows},
                    indent=1))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

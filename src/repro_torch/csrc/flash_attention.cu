@@ -29,9 +29,15 @@
 //     m64n64k16 with Q and K K-major in shared memory; O += P.V is
 //     m64nDk16 with P from registers (the S accumulator repacked as the
 //     A fragment) and V key-major in shared memory, read through the
-//     transpose flag. Every head dim of ops.HEAD_DIMS (16-256) takes it:
-//     rows of D < 64 use the 32- or 64-byte swizzle, D >= 64 the 128-byte
-//     one in D / 64 column blocks.
+//     transpose flag. Every head dim of ops.HEAD_DIMS (16-256 in steps of
+//     16) takes it: rows of D < 64 use the 32- or 64-byte swizzle, D >= 64
+//     the 128-byte one in D / 64 column blocks. A head dim that is not a
+//     power of two (hubert's 80) runs the instantiation of the next one
+//     (`kernel_dim`: 80 -> 128) over tensor maps whose inner dim is the
+//     real D: TMA fills the columns past D with zeros, which add nothing
+//     to Q.K^T and give zero output columns that the TMA store clips. The
+//     scale stays 1/sqrt(D); the padding costs D_kernel / D of the MMA
+//     work (1.6x at D 80) and no extra bytes of device memory.
 //  2. Copies overlap the math: one producer thread issues TMA loads (4-D
 //     tensor maps over (B, S, heads, D), one box a (b, head) slab of rows
 //     x one swizzle row; rows past S are zero-filled) into a ring of two
@@ -68,7 +74,8 @@
 //
 // f32 route (tests and the f32 model reference; off the main path),
 // `flash_kernel`: f32 FMAs on the CUDA cores (tensor cores would round to
-// TF32). 256 threads; the pre-scaled q tile, a 32-key K and V tile and the
+// TF32), at the same padded instantiation: columns past the real D load
+// as zeros and are not stored. 256 threads; the pre-scaled q tile, a 32-key K and V tile and the
 // 64x32 probability tile in shared memory as f32 (141 KB at D = 256);
 // thread t owns row t / 4, key columns t % 4 + 4j and value columns in
 // float4 groups 4(t % 4 + 4jj) .. +3. The row max and sum combine across
@@ -102,7 +109,7 @@ template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
-             int H, int KH, float scale, float softcap, int causal,
+             int H, int KH, int dr, float scale, float softcap, int causal,
              int window) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int QS = D + 4;           // padded row stride of Qs and Ks
@@ -122,8 +129,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int idx = tid; idx < BQ * D; idx += THREADS) {
     const int rr = idx / D, dd = idx % D, qp = q0 + rr;
     float val = 0.f;
-    if (qp < Sq)
-      val = to_f32(q[(((int64_t)b * Sq + qp) * H + h) * D + dd]) * scale;
+    if (qp < Sq && dd < dr)
+      val = to_f32(q[(((int64_t)b * Sq + qp) * H + h) * dr + dd]) * scale;
     Qs[rr * QS + dd] = val;
   }
 
@@ -149,8 +156,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < BK * D; idx += THREADS) {
       const int cc = idx / D, dd = idx % D, kp = k0 + cc;
       float kv = 0.f, vv = 0.f;
-      if (kp < Sk) {
-        const int64_t off = (((int64_t)b * Sk + kp) * KH + kh) * D + dd;
+      if (kp < Sk && dd < dr) {
+        const int64_t off = (((int64_t)b * Sk + kp) * KH + kh) * dr + dd;
         kv = to_f32(k[off]);
         vv = to_f32(v[off]);
       }
@@ -228,12 +235,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qpos < Sq) {
     const float den = fmaxf(l, 1e-30f);
-    T* orow = out + (((int64_t)b * Sq + qpos) * H + h) * D;
+    T* orow = out + (((int64_t)b * Sq + qpos) * H + h) * dr;
 #pragma unroll
     for (int jj = 0; jj < D / 16; ++jj) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        orow[4 * (c4 + 4 * jj) + e] = from_f32<T>(acc[4 * jj + e] / den);
+      for (int e = 0; e < 4; ++e) {
+        const int col = 4 * (c4 + 4 * jj) + e;
+        if (col < dr) orow[col] = from_f32<T>(acc[4 * jj + e] / den);
+      }
     }
   }
 }
@@ -929,19 +938,21 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the 4-D map of a contiguous (B, S, heads, D) bf16 tensor with boxes of
-// `rows` positions x one swizzle row of one (b, head)
+// the 4-D map of a contiguous (B, S, heads, dr) bf16 tensor with boxes of
+// `rows` positions x one swizzle row of one (b, head), in the geometry of
+// the instantiation D >= dr (columns past dr read as zeros, and a store
+// leaves them out)
 template <int D>
 int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
-             int rows) {
+             int dr, int rows) {
   using G = Geom<D>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+  const cuuint64_t dims[4] = {(cuuint64_t)dr, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)dr * 2,
+                                 (cuuint64_t)heads * dr * 2,
+                                 (cuuint64_t)S * heads * dr * 2};
   const cuuint32_t box[4] = {(cuuint32_t)G::AW, 1, (cuuint32_t)rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle =
@@ -957,7 +968,7 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 
 template <int D, int NWG, bool CAP>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int B, int Sq, int Sk, int H, int KH, float scale,
+                 int B, int Sq, int Sk, int H, int KH, int dr, float scale,
                  float softcap, int causal, int window, cudaStream_t stream) {
   constexpr int BQ = 64 * NWG;
   constexpr int bytes = wg_smem_bytes<D, NWG>();
@@ -966,10 +977,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   int err = raise_smem_limit(flash_wgmma_kernel<D, NWG, CAP>, bytes, done);
   if (err) return err;
   CUtensorMap mq, mk, mv, mo;
-  if ((err = make_map<D>(&mq, q, B, Sq, H, BQ))) return err;
-  if ((err = make_map<D>(&mk, k, B, Sk, KH, WG_BK))) return err;
-  if ((err = make_map<D>(&mv, v, B, Sk, KH, WG_BK))) return err;
-  if ((err = make_map<D>(&mo, out, B, Sq, H, 64))) return err;
+  if ((err = make_map<D>(&mq, q, B, Sq, H, dr, BQ))) return err;
+  if ((err = make_map<D>(&mk, k, B, Sk, KH, dr, WG_BK))) return err;
+  if ((err = make_map<D>(&mv, v, B, Sk, KH, dr, WG_BK))) return err;
+  if ((err = make_map<D>(&mo, out, B, Sq, H, dr, 64))) return err;
   const float mul = CAP ? scale / softcap : scale * LOG2E;
   const dim3 grid((unsigned)(B * H), (unsigned)((Sq + BQ - 1) / BQ));
   flash_wgmma_kernel<D, NWG, CAP><<<grid, 128 * (NWG + 1), bytes, stream>>>(
@@ -992,28 +1003,30 @@ int choose_block_q(int B, int H, int Sq, int window) {
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int B, int Sq, int Sk, int H, int KH, float scale,
+                int B, int Sq, int Sk, int H, int KH, int dr, float scale,
                 float softcap, int causal, int window, int block_q,
                 cudaStream_t s) {
   if (block_q == 0) block_q = choose_block_q(B, H, Sq, window);
   const bool cap = softcap > 0.f;
   if (block_q == 128)
-    return cap ? launch_wgmma<D, 2, true>(q, k, v, out, B, Sq, Sk, H, KH,
+    return cap ? launch_wgmma<D, 2, true>(q, k, v, out, B, Sq, Sk, H, KH, dr,
                                           scale, softcap, causal, window, s)
                : launch_wgmma<D, 2, false>(q, k, v, out, B, Sq, Sk, H, KH,
-                                           scale, softcap, causal, window, s);
+                                           dr, scale, softcap, causal,
+                                           window, s);
   if (block_q == 64)
-    return cap ? launch_wgmma<D, 1, true>(q, k, v, out, B, Sq, Sk, H, KH,
+    return cap ? launch_wgmma<D, 1, true>(q, k, v, out, B, Sq, Sk, H, KH, dr,
                                           scale, softcap, causal, window, s)
                : launch_wgmma<D, 1, false>(q, k, v, out, B, Sq, Sk, H, KH,
-                                           scale, softcap, causal, window, s);
+                                           dr, scale, softcap, causal,
+                                           window, s);
   return (int)cudaErrorInvalidValue;
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int Sq, int Sk, int H, int KH, float scale, float softcap,
-               int causal, int window, cudaStream_t stream) {
+               int Sq, int Sk, int H, int KH, int dr, float scale,
+               float softcap, int causal, int window, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
   static std::atomic<uint64_t> done{0};
   const int err = raise_smem_limit(flash_kernel<D, float>, bytes, done);
@@ -1022,26 +1035,33 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   flash_kernel<D, float><<<grid, THREADS, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KH,
-      scale, softcap, causal, window);
+      dr, scale, softcap, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int KH, float scale, float softcap,
+           int Sq, int Sk, int H, int KH, int dr, float scale, float softcap,
            int causal, int window, int bf16, int block_q, cudaStream_t s) {
   if (bf16)
-    return launch_bf16<D>(q, k, v, out, B, Sq, Sk, H, KH, scale, softcap,
+    return launch_bf16<D>(q, k, v, out, B, Sq, Sk, H, KH, dr, scale, softcap,
                           causal, window, block_q, s);
-  return launch_f32<D>(q, k, v, out, B, Sq, Sk, H, KH, scale, softcap,
+  return launch_f32<D>(q, k, v, out, B, Sq, Sk, H, KH, dr, scale, softcap,
                        causal, window, s);
+}
+
+// the instantiation a head dim runs (ops.kernel_dim): the next of 16, 32,
+// 64, 128, 256; 0 for a head dim the kernel does not take
+int kernel_dim(int D) {
+  if (D < 16 || D > 256 || D % 16) return 0;
+  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
 }
 
 }  // namespace
 
 // q, out: contiguous (B, Sq, H, D); k, v: contiguous (B, Sk, KH, D), all of
-// the type `bf16` names (1: bf16, 0: f32), 16-byte aligned. D in {16, 32,
-// 64, 128, 256}, H % KH == 0. window 0 means no window; softcap 0 means
+// the type `bf16` names (1: bf16, 0: f32), 16-byte aligned. D in 16..256,
+// a multiple of 16 (the Pallas kernel's domain), H % KH == 0. window 0 means no window; softcap 0 means
 // none. block_q (bf16 only): 64 or 128 query rows a CTA, 0 for the
 // launcher's choice per shape (`choose_block_q`). Returns the first CUDA
 // error of the set-up or the launch (0 on success).
@@ -1053,16 +1073,16 @@ extern "C" int rt_flash_attention_bq(const void* q, const void* k,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
-  switch (D) {
-    case 16: return launch<16>(q, k, v, out, B, Sq, Sk, H, KH, scale,
+  switch (kernel_dim(D)) {
+    case 16: return launch<16>(q, k, v, out, B, Sq, Sk, H, KH, D, scale,
                                softcap, causal, window, bf16, block_q, s);
-    case 32: return launch<32>(q, k, v, out, B, Sq, Sk, H, KH, scale,
+    case 32: return launch<32>(q, k, v, out, B, Sq, Sk, H, KH, D, scale,
                                softcap, causal, window, bf16, block_q, s);
-    case 64: return launch<64>(q, k, v, out, B, Sq, Sk, H, KH, scale,
+    case 64: return launch<64>(q, k, v, out, B, Sq, Sk, H, KH, D, scale,
                                softcap, causal, window, bf16, block_q, s);
-    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, H, KH, scale,
+    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, H, KH, D, scale,
                                  softcap, causal, window, bf16, block_q, s);
-    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, H, KH, scale,
+    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, H, KH, D, scale,
                                  softcap, causal, window, bf16, block_q, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -9,8 +9,9 @@ run") possible.
 
 Batches are drawn on the host with the JAX package's counter-based numpy
 Philox stream keyed on (seed, step), so batch ``i`` is identical in both
-packages; ``next`` hands the tokens back as a tensor on the pipeline's
-device.
+packages; ``next`` hands the batch back as tensors on the pipeline's
+device. An encoder config's batch is the JAX pipeline's frame features,
+cluster labels and mask, drawn from the same stream after the tokens.
 """
 from __future__ import annotations
 
@@ -45,9 +46,6 @@ class SyntheticPipeline:
 
     def __init__(self, cfg, *, batch, seq_len, mixture=(0.6, 0.3, 0.1),
                  device=None):
-        if cfg.family == "encoder":
-            raise NotImplementedError(
-                "encoder batches come with the encoder family (ROADMAP.md)")
         self.cfg = cfg
         self.batch = batch
         self.seq_len = seq_len
@@ -67,7 +65,9 @@ class SyntheticPipeline:
 
     def next_host(self, state: DataState):
         """(``{"tokens": int32 (B, S) numpy}``, next state): the JAX
-        pipeline's batch, draw for draw."""
+        pipeline's batch, draw for draw. An encoder's batch is
+        ``{"features": f32 (B, S, d_model), "labels": int32 (B, S),
+        "mask": bool (B, S)}``."""
         rng = self._rng(state)
         B, S, V = self.batch, self.seq_len, self.cfg.vocab_size
         src = rng.choice(len(self.mixture), size=(B,), p=self.mixture)
@@ -86,11 +86,16 @@ class SyntheticPipeline:
             toks[rows] = (lo + (z % max(hi - lo, 1))).astype(np.int32)
         new_state = replace(state, step=state.step + 1,
                             source_counts=tuple(counts))
+        if self.cfg.family == "encoder":
+            feats = rng.standard_normal((B, S, self.cfg.d_model),
+                                        dtype=np.float32)
+            mask = rng.random((B, S)) < 0.35
+            return {"features": feats, "labels": toks % V,
+                    "mask": mask}, new_state
         return {"tokens": toks % V}, new_state
 
     def next(self, state: DataState):
-        """(``{"tokens": int32 (B, S) tensor on the device}``, next
-        state)."""
+        """(``next_host``'s batch as tensors on the device, next state)."""
         import torch
         batch, new_state = self.next_host(state)
         return {k: torch.from_numpy(v).to(self.device)

@@ -27,6 +27,13 @@ Masks: ``causal`` drops keys after the query; ``window`` W > 0 drops keys
 W or more before it and, without causality, W or more after it. GQA
 indexes kv head ``h // (H // K)``; K/V are never repeated.
 
+Head dims: the Pallas kernel takes any D as its full last block dim; the
+kernel takes 16..256 in steps of 16 (``HEAD_DIMS``). A D that is not a
+power of two runs the instantiation ``kernel_dim(D)`` (hubert's 80 → 128)
+over tensor maps whose inner dim is D: the columns past D load as zeros
+and are never stored, the scale stays 1/√D, and the MMA work grows by
+``kernel_dim(D) / D``.
+
 The kernel is bound by operations: 4·D flops per unmasked (query, key)
 pair. ``tile_plan`` states its tile arithmetic (which key tiles each query
 tile visits, which of them need the per-element mask, the longest-first
@@ -42,7 +49,8 @@ import threading
 from .. import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = tuple(range(16, 257, 16))
+KERNEL_DIMS = (16, 32, 64, 128, 256)    # the kernel's instantiations
 BLOCK_QS = (64, 128)    # query rows a CTA of the bf16 kernel
 BLOCK_K = 64            # keys a tile of the bf16 kernel
 
@@ -107,6 +115,15 @@ def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
     return (torch.softmax(s, dim=-1) @ vh).to(q.dtype)
 
 
+def kernel_dim(d: int) -> int:
+    """The instantiation that runs head dim `d` (``csrc/flash_attention.cu``
+    ``kernel_dim``): the least of ``KERNEL_DIMS`` at or above it."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"attention kernel takes head_dim in 16..256 in "
+                         f"steps of 16, got {d}")
+    return next(k for k in KERNEL_DIMS if k >= d)
+
+
 def _aligned(t):
     """Contiguous, at a 16-byte aligned address (the kernel reads rows with
     16-byte loads; a view may start anywhere)."""
@@ -135,9 +152,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"attention kernel takes bf16/f32 q, k, v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"attention kernel takes head_dim in {HEAD_DIMS}, "
-                         f"got {D}")
+    kernel_dim(D)
     if block_q and block_q not in BLOCK_QS:
         raise ValueError(f"block_q takes 0 or {BLOCK_QS}, got {block_q}")
     if not (k.is_cuda and v.is_cuda):

@@ -22,6 +22,7 @@ the last-good weights.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import time
 
@@ -87,8 +88,8 @@ def _hot_swap(params, sub, last_step, ws: dict, dev):
 
 def run(arch: str, *, n_requests=8, prompt_len=32, gen_len=32,
         workdir="runs/serve", ckpt_every=16, preempt_at=None,
-        full_config=False, seed=0, weight_sync=None, weight_sync_name=None,
-        device=None):
+        full_config=False, n_layers=None, seed=0, weight_sync=None,
+        weight_sync_name=None, device=None):
     """Greedy-serve `n_requests` prompts of `prompt_len` tokens (from
     ``np.random.default_rng(seed)``, as the JAX launcher draws them) for
     `gen_len` tokens, checkpointing the serving state every `ckpt_every`
@@ -96,7 +97,9 @@ def run(arch: str, *, n_requests=8, prompt_len=32, gen_len=32,
     A run whose store already holds a checkpoint resumes from the newest.
     Returns the JAX launcher's report plus timings: ``prefill_s``,
     ``decode_s``, ``tok_per_s``, ``save_s``/``save_bytes`` (last save) and
-    ``restore_s``.
+    ``restore_s``. `n_layers` cuts the config's depth (its first
+    `n_layers` layers, at its widths). An encoder has no decode path and
+    is refused, as in the JAX launcher.
 
     `weight_sync` (a publisher's store root) hot-swaps published params
     before every decode step (``_hot_swap``); the completed report then
@@ -106,6 +109,10 @@ def run(arch: str, *, n_requests=8, prompt_len=32, gen_len=32,
     that flipped), the copy seconds and the flips' blocking seconds."""
     import torch
     cfg = get_config(arch) if full_config else reduced(get_config(arch))
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if cfg.family == "encoder":
+        raise SystemExit("encoder-only arch has no decode serving path")
     dev = resolve_device(device)
     model = Model(cfg)
     prefill_fn, decode_fn, _ = make_serve_fns(model)

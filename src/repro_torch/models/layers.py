@@ -1,6 +1,7 @@
-"""Shared layers of the dense model families, as plain functions over the
-JAX package's parameter dicts (``src/repro/models/layers.py``): norms, rope,
-MLPs and attention.
+"""Shared layers of the model families, as plain functions over the JAX
+package's parameter dicts (``src/repro/models/layers.py``): norms, rope,
+MLPs, attention, and the two convolutions (the causal depthwise conv of
+the SSM and RG-LRU blocks, the encoder's conv positional embedding).
 
 Two of them run the port's hand-written kernels on a CUDA tensor:
 ``rmsnorm`` is K7 (``kernels.rmsnorm``) and the sequence attentions
@@ -153,3 +154,54 @@ def attention_decode(q, k, v, *, kv_len, softcap=0.0, scale=None):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
     return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# conv positional embedding (HuBERT) and causal conv1d (mamba/rglru)
+# ---------------------------------------------------------------------------
+
+def conv_pos_embed(params, x):
+    """Depthwise same-padded conv positional embedding (w2v2/HuBERT):
+    ``x + gelu_tanh(conv(x))`` with the weight laid out (width, d), a
+    cross-correlation in f32 over x padded by width // 2 on the left and
+    width − 1 − width // 2 on the right (64 and 63 at width 128).
+
+    Written as `width` f32 multiply-adds over views of one padded tensor:
+    autograd keeps the padded tensor and the weight, not a width× stack of
+    shifted copies, and every step is an elementwise op — deterministic,
+    and full f32 on the card (cuDNN would run an f32 convolution in TF32
+    by default). The sum runs over the taps in order."""
+    import torch
+    import torch.nn.functional as F
+    w = params["w"]
+    width, d = w.shape
+    S = x.shape[1]
+    left = width // 2
+    xp = F.pad(x.float(), (0, 0, left, width - 1 - left))
+    wf = w.float()
+    pos = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(width):
+        pos = pos + xp[:, i:i + S] * wf[i]
+    return x + F.gelu(pos, approximate="tanh").to(x.dtype)
+
+
+def causal_conv1d(x, w, b=None, *, state=None):
+    """Causal depthwise conv. x: (B, S, C); w: (width, C) → (out in x's
+    dtype, the new (B, width − 1, C) history). `state` (B, width − 1, C)
+    is the history to prepend (decode, segmented prefill); None is a zero
+    history. Accumulates in f32 tap by tap, in the JAX function's order."""
+    import torch
+    width = w.shape[0]
+    B, S, C = x.shape
+    if state is None:
+        hist = x.new_zeros((B, width - 1, C))
+    else:
+        hist = state.to(x.dtype)
+    xp = torch.cat([hist, x], dim=1)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(width):
+        out = out + xp[:, i:i + S].float() * w[i].float()
+    if b is not None:
+        out = out + b.float()
+    new_state = xp[:, S:] if width > 1 else hist
+    return out.to(x.dtype), new_state

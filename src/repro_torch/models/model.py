@@ -1,21 +1,24 @@
-"""The model zoo's attention families, dense and MoE
-(``src/repro/models/model.py``), as plain functions over the JAX package's
-nested parameter dict.
+"""The model zoo (``src/repro/models/model.py``) — the attention families,
+dense and MoE, the Mamba-2 SSM, the RG-LRU hybrid and the encoder — as
+plain functions over the JAX package's nested parameter dict.
 
     model = Model(cfg)
     params              = model.init(seed=0, device=None)
     last_logits, cache  = model.prefill(params, tokens, cache_len=...)
     logits, cache       = model.decode_step(params, cache, tokens)
     cache               = model.init_cache(batch, cache_len)
+    logits              = model.encode(params, features)      (encoder)
 
 Parameters keep the JAX layout — ``stage_{i}`` subtrees whose leaves are
-stacked along a leading repeat axis — and the KV cache keeps the JAX cache
-tree (``pos`` plus ``stage_{i}/b{j}/{k,v}`` stacked the same way), so a
-serving checkpoint's leaf names, shapes and dtypes are the JAX package's
-one for one and either package resumes the other's. ``lax.scan`` over a
-stage's repeats becomes a Python loop over the leading axis.
+stacked along a leading repeat axis — and the decode cache keeps the JAX
+cache tree (``pos`` plus ``stage_{i}/b{j}/{k,v}`` for attention blocks and
+``stage_{i}/b{j}/{conv,h}`` for SSM and RG-LRU blocks, stacked the same
+way), so a serving checkpoint's leaf names, shapes and dtypes are the JAX
+package's one for one and either package resumes the other's. ``lax.scan``
+over a stage's repeats becomes a Python loop over the leading axis.
 
     loss, metrics       = model.loss(params, {"tokens": tokens})
+    loss, metrics       = model.loss(params, {"features", "labels", "mask"})
 
 MoE stages route their MLP through ``models.moe.moe_apply`` (the JAX
 package's no-mesh route; ``moe_impl="shard_map"`` waits for the sharding
@@ -26,35 +29,32 @@ router_z_loss`` and reports the three aux values, each summed over the MoE
 layers.
 
 Deviations, each named where it happens: ``decode_step`` writes the new
-key/value into the cache tensors in place and returns the same tree (the
-JAX version returns new arrays); ``init`` draws from a ``torch.Generator``
+key/value, and an SSM or RG-LRU block's new conv history and state, into
+the cache tensors in place and returns the same tree (the JAX version
+returns new arrays); ``init`` draws from a ``torch.Generator``
 (other values than ``jax.random`` from the same seed — move weights across
 with ``convert.params_from_jax``); the training forward keeps every
 block's activations for the backward pass (no per-layer remat: the JAX
 ``remat_policy`` is a memory knob of its compiled step, and full-width
-gemma3-1b fits the card without it). SSM and RG-LRU blocks and
-``encode`` raise ``NotImplementedError``: they come with the SSM, RG-LRU and
-encoder slice.
+gemma3-1b fits the card without it); the SSD chunk masks its decay block
+before the ``exp`` (``models/ssm.py``: the reference's gradient is NaN at
+chunk 256).
 """
 from __future__ import annotations
 
 import math
 
-from ..configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig, build_stages
+from ..configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, SSM, ModelConfig,
+                            build_stages)
 from ..devices import resolve_device
+from . import rglru as rglru_mod
+from . import ssm as ssm_mod
 from .layers import (_softcap, apply_norm, apply_rope, attention_decode,
-                     attention_full, attention_local, mlp_apply, rmsnorm,
-                     rope_table)
+                     attention_full, attention_local, conv_pos_embed,
+                     mlp_apply, rmsnorm, rope_table)
 from .moe import moe_apply
 
 ATTN = (ATTN_GLOBAL, ATTN_LOCAL)
-
-
-def _later(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: the port's Model covers the attention "
-        "families, dense and MoE (serving and training); SSM and RG-LRU "
-        "blocks and the encoder come with the next slice (ROADMAP.md)")
 
 
 def _unstack(tree, repeat: int) -> list:
@@ -79,12 +79,6 @@ class Model:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.stages = build_stages(cfg)
-        for stage in self.stages:
-            for kind in stage.kinds:
-                if kind not in ATTN:
-                    _later(f"block kind {kind!r}")
-        if cfg.family == "encoder":
-            _later("the encoder family")
 
     # ------------------------------------------------------------------
     # init
@@ -175,15 +169,27 @@ class Model:
 
     def _block_sequence(self, p, x, kind, moe, ropes, cache_len):
         """One block over a full sequence: (x, aux, this block's cache;
-        None when `cache_len` is None, as in training)."""
+        None when `cache_len` is None, as in training). An SSM block has no
+        MLP half."""
         cfg = self.cfg
         h = apply_norm(p["norm_in"], x, cfg)
-        o, (k, v) = self._attn_sequence(p, h, kind, ropes)
-        new_cache = None if cache_len is None else \
-            self._build_attn_cache(kind, k, v, cache_len)
+        want = cache_len is not None
+        new_cache = None
+        if kind in ATTN:
+            o, (k, v) = self._attn_sequence(p, h, kind, ropes)
+            if want:
+                new_cache = self._build_attn_cache(kind, k, v, cache_len)
+        else:
+            key, fwd = ("rglru", rglru_mod.rglru_forward) if kind == RGLRU \
+                else ("ssm", ssm_mod.ssd_forward)
+            o = fwd(p[key], h, cfg, return_state=want)
+            if want:
+                o, new_cache = o
         if cfg.post_norm:
             o = apply_norm(p["norm_post"], o, cfg)
         x = x + o
+        if kind == SSM:
+            return x, {}, new_cache
         y, aux = self._mlp_part(p, x, moe)
         return x + y, aux, new_cache
 
@@ -213,11 +219,29 @@ class Model:
         return out
 
     def _block_decode(self, p, x, kind, moe, cache, pos, ropes):
-        """One block for a single token; writes the new key/value into
-        `cache` (this layer's views) in place. A MoE block's group is the
-        batch (its capacity is the decode step's own, as in JAX)."""
+        """One block for a single token; writes the new key/value (or the
+        new conv history and state) into `cache` (this layer's views) in
+        place. A MoE block's group is the batch (its capacity is the decode
+        step's own, as in JAX)."""
         cfg = self.cfg
         h = apply_norm(p["norm_in"], x, cfg)
+        if kind in ATTN:
+            o = self._attn_decode(p, h, kind, cache, pos, ropes)
+        else:
+            key, step = ("rglru", rglru_mod.rglru_decode_step) \
+                if kind == RGLRU else ("ssm", ssm_mod.ssd_decode_step)
+            o, new = step(p[key], h, cfg, cache)
+            for name, t in new.items():
+                cache[name].copy_(t)
+        if cfg.post_norm:
+            o = apply_norm(p["norm_post"], o, cfg)
+        x = x + o
+        if kind == SSM:
+            return x
+        return x + self._mlp_part(p, x, moe)[0]
+
+    def _attn_decode(self, p, h, kind, cache, pos, ropes):
+        cfg = self.cfg
         q, k, v = self._qkv(p, h, kind, ropes)
         cap = cache["k"].shape[1]
         if kind == ATTN_LOCAL:
@@ -230,11 +254,7 @@ class Model:
         o = attention_decode(q, cache["k"], cache["v"], kv_len=kv_len,
                              softcap=cfg.attn_softcap,
                              scale=cfg.attn_scale or None)
-        o = self._out(p, o)
-        if cfg.post_norm:
-            o = apply_norm(p["norm_post"], o, cfg)
-        x = x + o
-        return x + self._mlp_part(p, x, moe)[0]
+        return self._out(p, o)
 
     # ------------------------------------------------------------------
     # stages (the JAX scan over stacked layers → a loop over the axis)
@@ -256,7 +276,7 @@ class Model:
                 per_layer.append(new_c)
             caches[f"stage_{si}"] = {
                 f"b{j}": {n: torch.stack([c[f"b{j}"][n] for c in per_layer])
-                          for n in ("k", "v")}
+                          for n in per_layer[0][f"b{j}"]}
                 for j in range(len(stage.kinds))}
         return x, caches
 
@@ -353,12 +373,21 @@ class Model:
         caches = {"pos": torch.tensor(0, dtype=torch.int32, device=dev)}
         for si, stage in enumerate(self.stages):
             sc = {}
+            R = stage.repeat
             for j, kind in enumerate(stage.kinds):
-                n = min(cfg.window, cache_len) if kind == ATTN_LOCAL \
-                    else cache_len
-                shp = (stage.repeat, batch, n, cfg.n_kv_heads, cfg.head_dim)
-                sc[f"b{j}"] = {"k": torch.zeros(shp, dtype=dt, device=dev),
-                               "v": torch.zeros(shp, dtype=dt, device=dev)}
+                if kind in ATTN:
+                    n = min(cfg.window, cache_len) \
+                        if kind == ATTN_LOCAL else cache_len
+                    shp = (R, batch, n, cfg.n_kv_heads, cfg.head_dim)
+                    sc[f"b{j}"] = {
+                        "k": torch.zeros(shp, dtype=dt, device=dev),
+                        "v": torch.zeros(shp, dtype=dt, device=dev)}
+                    continue
+                st = (rglru_mod.init_rglru_state if kind == RGLRU
+                      else ssm_mod.init_ssm_state)(cfg, batch, device="meta")
+                sc[f"b{j}"] = {n: torch.zeros((R,) + tuple(t.shape),
+                                              dtype=t.dtype, device=dev)
+                               for n, t in st.items()}
             caches[f"stage_{si}"] = sc
         return caches
 
@@ -370,6 +399,8 @@ class Model:
         three aux values."""
         import torch
         cfg = self.cfg
+        if cfg.family == "encoder":
+            return self._encoder_loss(params, batch)
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._embed(params, tokens)
@@ -391,8 +422,30 @@ class Model:
                    "loss": loss.detach()}
         return loss, metrics
 
+    def _encoder_loss(self, params, batch):
+        """Masked cluster prediction: the mean NLL of `labels` over the
+        frames where `mask` is set."""
+        import torch
+        logits = self.encode(params, batch["features"])
+        lse = logits.logsumexp(dim=-1)
+        correct = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+        m = batch["mask"].float()
+        nll = ((lse - correct) * m).sum() / torch.clamp(m.sum(), min=1.0)
+        return nll, {"loss": nll.detach(), "nll": nll.detach()}
+
     def encode(self, params, feats):
-        _later("Model.encode (the encoder family)")
+        """Encoder-only forward. feats: (B, S, d_model) precomputed frame
+        embeddings (the modality frontend is a stub, as in JAX) → (B, S, V)
+        f32 logits, the product accumulated and returned in f32."""
+        import torch
+        cfg = self.cfg
+        x = feats.to(getattr(torch, cfg.dtype))
+        if cfg.positional == "conv":
+            x = conv_pos_embed(params["pos_conv"], x)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, _ = self._run_stages_train(params, x, positions)
+        x = apply_norm(params["final_norm"], x, cfg)
+        return x.float() @ self._head_weights(params).float()
 
 
 # ---------------------------------------------------------------------------

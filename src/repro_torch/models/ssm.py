@@ -1,0 +1,174 @@
+"""Mamba-2 SSD (state-space duality) block (``src/repro/models/ssm.py`` on
+PyTorch), as plain functions over the JAX package's parameter dict.
+
+Training and prefill run the chunked SSD algorithm: the reference's
+``lax.scan`` over chunks is a Python loop here, carrying the (B, nh, hd, N)
+f32 state from chunk to chunk; decode is the O(1) recurrent update. The
+einsums run in f32 where the reference upcasts, and the gated
+``rmsnorm(y * silu(z), out_norm)`` at width d_inner goes through
+``layers.rmsnorm`` (the K7 kernel on a CUDA tensor).
+
+One divergence by design: the intra-chunk decay block is
+``exp(where(mask, seg, −inf))``, masked before the ``exp``. The reference
+(``ssm.py:104-107``) writes ``where(mask, exp(seg), 0)``: its upper
+triangle holds ``seg ≥ 0``, which passes f32's ``exp`` range after ~55
+steps of ``dA`` near −1.6, and its backward then multiplies 0 by inf — a
+NaN gradient at the real chunk size 256. The forward values are the
+same (``exp(−inf) = 0`` where the reference writes 0).
+
+Memory (no remat): autograd keeps three (B, nh, L, L) f32 blocks a
+chunk — ``exp``'s output, ``C·Bᵀ`` and their product, 50 MB each at B 4,
+48 heads, L 256 — beside the chunk's f32 (B, L, nh, N) head copies of B
+and C and the conv taps' f32 inputs: the 12-layer full-width training run
+of ``chip_smoke.py`` (4 × 1,024 tokens) peaks at 26.6 GB on the card,
+~2 GB a layer, so the chunk body runs without ``torch.utils.checkpoint``
+at that depth (all 48 layers would not fit 80 GB without it).
+"""
+from __future__ import annotations
+
+from .layers import causal_conv1d, rmsnorm
+
+
+def dims(cfg):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    nh = d_inner // s.head_dim
+    conv_dim = d_inner + 2 * s.n_groups * s.d_state
+    return d_inner, nh, conv_dim
+
+
+def _split_proj(cfg, zxbcdt):
+    s = cfg.ssm
+    d_inner, nh, _ = dims(cfg)
+    gn = s.n_groups * s.d_state
+    z = zxbcdt[..., :d_inner]
+    xBC = zxbcdt[..., d_inner: 2 * d_inner + 2 * gn]
+    dt = zxbcdt[..., 2 * d_inner + 2 * gn:]
+    return z, xBC, dt
+
+
+def _to_heads(t, rep: int):
+    """(..., G, N) → (..., G·rep, N), each group repeated over its heads
+    (``jnp.repeat`` on the group axis; the backward is a sum)."""
+    *lead, G, N = t.shape
+    return t[..., None, :].expand(*lead, G, rep, N).reshape(*lead, G * rep,
+                                                              N)
+
+
+def _chunk(h, xk, Bk, Ck, dtk, A, rep: int):
+    """One chunk of L positions: (h carried out, y (B, L, nh, hd) f32).
+    h: (B, nh, hd, N) f32; xk (B, L, nh, hd); Bk/Ck (B, L, G, N); dtk
+    (B, L, nh) f32; A (nh,) f32 ≤ 0."""
+    import torch
+    L = xk.shape[1]
+    dA = dtk * A                                    # (B, L, nh) <= 0
+    cum = torch.cumsum(dA, dim=1)
+    Bh = _to_heads(Bk, rep).float()                 # (B, L, nh, N)
+    Ch = _to_heads(Ck, rep).float()
+    xdt = xk.float() * dtk[..., None]               # (B, L, nh, hd)
+    # intra-chunk (quadratic within the chunk)
+    cb = torch.einsum("bihn,bjhn->bhij", Ch, Bh)
+    seg = (cum[:, :, None] - cum[:, None, :]).permute(0, 3, 1, 2)
+    mask = torch.ones((L, L), dtype=torch.bool, device=xk.device).tril()
+    M = torch.exp(torch.where(mask, seg, float("-inf")))
+    y = torch.einsum("bhij,bjhp->bihp", cb * M, xdt)
+    # inter-chunk contribution of the carried state
+    y = y + torch.einsum("bihn,bhpn->bihp", Ch * torch.exp(cum)[..., None], h)
+    # state update
+    w = torch.exp(cum[:, -1:, :] - cum)             # (B, L, nh)
+    s_c = torch.einsum("bjhn,bjhp->bhpn", Bh * w[..., None], xdt)
+    h = torch.exp(cum[:, -1])[..., None, None] * h + s_c
+    return h, y
+
+
+def ssd_forward(params, x, cfg, *, state=None, return_state=False):
+    """x: (B, S, D) → y (B, S, D) [, new_state].
+
+    state = {"conv": (B, w−1, conv_dim), "h": (B, nh, hd, N) f32} or None.
+    S must be a multiple of min(chunk_size, S), as in the reference."""
+    import torch
+    import torch.nn.functional as F
+    s = cfg.ssm
+    B, S, D = x.shape
+    d_inner, nh, conv_dim = dims(cfg)
+    G, N, hd, L = s.n_groups, s.d_state, s.head_dim, s.chunk_size
+    L = min(L, S)
+    assert S % L == 0, (S, L)
+    nc = S // L
+
+    zxbcdt = x @ params["in_proj"]
+    z, xBC, dtr = _split_proj(cfg, zxbcdt)
+    conv_state = None if state is None else state["conv"]
+    xBC, new_conv = causal_conv1d(xBC, params["conv_w"], params["conv_b"],
+                                  state=conv_state)
+    xBC = F.silu(xBC)
+    xs = xBC[..., :d_inner].reshape(B, S, nh, hd)
+    Bm = xBC[..., d_inner:d_inner + G * N].reshape(B, S, G, N)
+    Cm = xBC[..., d_inner + G * N:].reshape(B, S, G, N)
+    dt = F.softplus(dtr.float() + params["dt_bias"])        # (B, S, nh)
+    A = -torch.exp(params["A_log"])                          # (nh,)
+
+    h = torch.zeros((B, nh, hd, N), dtype=torch.float32, device=x.device) \
+        if state is None else state["h"].float()
+    ys = []
+    for c in range(nc):
+        sl = slice(c * L, (c + 1) * L)
+        h, yc = _chunk(h, xs[:, sl], Bm[:, sl], Cm[:, sl], dt[:, sl], A,
+                       nh // G)
+        ys.append(yc)
+    y = torch.cat(ys, dim=1)                                 # (B, S, nh, hd)
+    y = y + params["D"][:, None] * xs.float()
+    y = y.reshape(B, S, d_inner).to(x.dtype)
+    y = rmsnorm(y * F.silu(z), params["out_norm"])
+    out = y @ params["out_proj"]
+    if return_state:
+        return out, {"conv": new_conv, "h": h}
+    return out
+
+
+def ssd_decode_step(params, x, cfg, state):
+    """x: (B, 1, D); state {"conv", "h"} → (y (B, 1, D), new_state): new
+    tensors, the caller's state is not written."""
+    import torch
+    import torch.nn.functional as F
+    s = cfg.ssm
+    B = x.shape[0]
+    d_inner, nh, conv_dim = dims(cfg)
+    G, N, hd = s.n_groups, s.d_state, s.head_dim
+
+    zxbcdt = x @ params["in_proj"]
+    z, xBC, dtr = _split_proj(cfg, zxbcdt)
+    xBC, new_conv = causal_conv1d(xBC, params["conv_w"], params["conv_b"],
+                                  state=state["conv"])
+    xBC = F.silu(xBC)
+    xs = xBC[:, 0, :d_inner].reshape(B, nh, hd)
+    Bm = xBC[:, 0, d_inner:d_inner + G * N].reshape(B, G, N)
+    Cm = xBC[:, 0, d_inner + G * N:].reshape(B, G, N)
+    dt = F.softplus(dtr[:, 0].float() + params["dt_bias"])  # (B, nh)
+    A = -torch.exp(params["A_log"])
+    rep = nh // G
+    Bh = _to_heads(Bm, rep).float()                          # (B, nh, N)
+    Ch = _to_heads(Cm, rep).float()
+    dA = torch.exp(dt * A)
+    xdt = xs.float() * dt[..., None]                         # (B, nh, hd)
+    h = dA[..., None, None] * state["h"] + \
+        torch.einsum("bhn,bhp->bhpn", Bh, xdt)
+    y = torch.einsum("bhn,bhpn->bhp", Ch, h)
+    y = y + params["D"][:, None] * xs.float()
+    y = y.reshape(B, 1, d_inner).to(x.dtype)
+    y = rmsnorm(y * F.silu(z), params["out_norm"])
+    out = y @ params["out_proj"]
+    return out, {"conv": new_conv, "h": h}
+
+
+def init_ssm_state(cfg, batch, *, device=None):
+    """Zero decode state: conv history in the params' dtype, h in f32."""
+    import torch
+    s = cfg.ssm
+    d_inner, nh, conv_dim = dims(cfg)
+    return {
+        "conv": torch.zeros((batch, s.d_conv - 1, conv_dim),
+                            dtype=getattr(torch, cfg.dtype), device=device),
+        "h": torch.zeros((batch, nh, s.head_dim, s.d_state),
+                         dtype=torch.float32, device=device),
+    }

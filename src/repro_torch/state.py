@@ -11,22 +11,57 @@ and its ``count``), an int32 ``step`` and the two-word uint32 ``rng``.
 
 Values come from a seeded ``torch.Generator`` on the device: parameters at
 their init scales (normal × the JAX init's scale, norms at their init
-value), and the optimizer's moments filled with noise of a trained run's
-magnitude — zeros would let the codec compress them to nothing: this is
-the state a trained run holds, at full width, without training it
-(``core.split_state.init_train_state`` gives a fresh run's state, zero
-moments, for the trainer).
+value; the SSM's ``A_log``/``dt_bias`` and the RG-LRU's ``lam`` from the
+JAX inits' own formulas, ``INITS``), and the optimizer's moments filled
+with noise of a trained run's magnitude — zeros would let the codec
+compress them to nothing: this is the state a trained run holds, at full
+width, without training it (``core.split_state.init_train_state`` gives a
+fresh run's state, zero moments, for the trainer).
 """
 from __future__ import annotations
 
 import math
 
-from .configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig, build_stages
+from .configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, SSM, ModelConfig,
+                           build_stages)
 from .core.split_state import map_leaves
 from .devices import resolve_device
 
 M_SCALE = 1e-3          # |m| of a trained AdamW run, roughly
 V_SCALE = 2e-3          # v ~ (V_SCALE · N(0,1))²
+_RGLRU_C = 8.0          # models/rglru.py::_C
+
+
+def _a_log(shape, g, dev):
+    """``log(linspace(1, 16, nh))``: the SSM heads' decay rates, computed
+    in f64 and rounded once (the same on every device; the JAX init's f32
+    ``linspace`` and ``log`` land within 2 ulp of it)."""
+    import torch
+    a = torch.linspace(1.0, 16.0, shape[-1], dtype=torch.float64,
+                       device=dev).log().float()
+    return a.expand(shape).contiguous()
+
+
+def _dt_bias(shape, g, dev):
+    """The inverse softplus of dt = exp(U[log 1e-3, log 1e-1])."""
+    import torch
+    u = torch.rand(shape, generator=g, device=dev) * \
+        (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3)
+    dt0 = torch.exp(u)
+    return dt0 + torch.log(-torch.expm1(-dt0))
+
+
+def _lam(shape, g, dev):
+    """λ = log(expm1(−log(a0) / 8)), a0 ~ U[0.9, 0.999]: a decay of a0 at
+    r = 1."""
+    import torch
+    a0 = torch.rand(shape, generator=g, device=dev) * (0.999 - 0.9) + 0.9
+    return torch.log(torch.expm1(-torch.log(a0) / _RGLRU_C))
+
+
+# named inits of ``param_specs`` beside a normal's scale, "zeros", "ones":
+# fn(shape, generator, device) → f32 tensor
+INITS = {"a_log": _a_log, "dt_bias": _dt_bias, "lam": _lam}
 
 
 def _norm(cfg: ModelConfig, d: int) -> dict:
@@ -68,32 +103,73 @@ def _moe(cfg: ModelConfig, d: int) -> dict:
     return p
 
 
+def _ssm(cfg: ModelConfig) -> dict:
+    """``repro/models/ssm.py::init_ssm``: A_log, D and dt_bias in f32."""
+    c, d, dt = cfg.ssm, cfg.d_model, cfg.dtype
+    d_inner = c.expand * d
+    nh = d_inner // c.head_dim
+    gn = c.n_groups * c.d_state
+    conv_dim = d_inner + 2 * gn
+    return {"in_proj": ((d, 2 * d_inner + 2 * gn + nh), 1.0 / math.sqrt(d),
+                        dt),
+            "conv_w": ((c.d_conv, conv_dim), 1.0 / math.sqrt(c.d_conv), dt),
+            "conv_b": ((conv_dim,), "zeros", dt),
+            "A_log": ((nh,), "a_log", "float32"),
+            "D": ((nh,), "ones", "float32"),
+            "dt_bias": ((nh,), "dt_bias", "float32"),
+            "out_norm": ((d_inner,), "zeros", dt),
+            "out_proj": ((d_inner, d), 1.0 / math.sqrt(d_inner), dt)}
+
+
+def _rglru(cfg: ModelConfig) -> dict:
+    """``repro/models/rglru.py::init_rglru``: lam and the four gate
+    vectors in f32."""
+    r, d, dt = cfg.rglru, cfg.d_model, cfg.dtype
+    w = r.lru_width or d
+    p = {"wx": ((d, w), 1.0 / math.sqrt(d), dt),
+         "wg": ((d, w), 1.0 / math.sqrt(d), dt),
+         "wo": ((w, d), 1.0 / math.sqrt(w), dt),
+         "conv_w": ((r.conv_width, w), 1.0 / math.sqrt(r.conv_width), dt),
+         "conv_b": ((w,), "zeros", dt),
+         "lam": ((w,), "lam", "float32")}
+    for g in ("gate_a_w", "gate_a_b", "gate_x_w", "gate_x_b"):
+        p[g] = ((w,), "zeros", "float32")
+    return p
+
+
 def _block(cfg: ModelConfig, kind: str, moe: bool) -> dict:
-    if kind not in (ATTN_GLOBAL, ATTN_LOCAL):
-        raise NotImplementedError(f"block kind {kind!r} is not ported")
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.dtype
-    s = 1.0 / math.sqrt(d)
-    p = {"norm_in": _norm(cfg, d),
-         "q": ((d, H, hd), s, dt), "k": ((d, K, hd), s, dt),
-         "v": ((d, K, hd), s, dt),
-         "o": ((H, hd, d), 1.0 / math.sqrt(H * hd), dt)}
-    if cfg.use_bias:
-        p.update(q_b=((H, hd), "zeros", dt), k_b=((K, hd), "zeros", dt),
-                 v_b=((K, hd), "zeros", dt), o_b=((d,), "zeros", dt))
-    if cfg.qk_norm:
-        p["q_norm"] = _norm(cfg, hd)
-        p["k_norm"] = _norm(cfg, hd)
-    p["norm_mlp"] = _norm(cfg, d)
-    if moe:
-        p["moe"] = _moe(cfg, d)
+    p = {"norm_in": _norm(cfg, d)}
+    if kind in (ATTN_GLOBAL, ATTN_LOCAL):
+        s = 1.0 / math.sqrt(d)
+        p.update(q=((d, H, hd), s, dt), k=((d, K, hd), s, dt),
+                 v=((d, K, hd), s, dt),
+                 o=((H, hd, d), 1.0 / math.sqrt(H * hd), dt))
+        if cfg.use_bias:
+            p.update(q_b=((H, hd), "zeros", dt), k_b=((K, hd), "zeros", dt),
+                     v_b=((K, hd), "zeros", dt), o_b=((d,), "zeros", dt))
+        if cfg.qk_norm:
+            p["q_norm"] = _norm(cfg, hd)
+            p["k_norm"] = _norm(cfg, hd)
+    elif kind == RGLRU:
+        p["rglru"] = _rglru(cfg)
     else:
-        # the dense-first layers of a MoE config (kimi-k2) take dense_d_ff
-        ff = cfg.d_ff if cfg.moe is None else (cfg.moe.dense_d_ff or cfg.d_ff)
-        p["mlp"] = _mlp(cfg, d, ff)
+        p["ssm"] = _ssm(cfg)
+    if kind != SSM:         # a mamba2 block has no MLP of its own
+        p["norm_mlp"] = _norm(cfg, d)
+        if moe:
+            p["moe"] = _moe(cfg, d)
+        else:
+            # the dense-first layers of a MoE config (kimi-k2) take
+            # dense_d_ff
+            ff = cfg.d_ff if cfg.moe is None else \
+                (cfg.moe.dense_d_ff or cfg.d_ff)
+            p["mlp"] = _mlp(cfg, d, ff)
     if cfg.post_norm:
         p["norm_post"] = _norm(cfg, d)
-        p["norm_post_mlp"] = _norm(cfg, d)
+        if kind != SSM:
+            p["norm_post_mlp"] = _norm(cfg, d)
     return p
 
 
@@ -104,8 +180,8 @@ def _stack(tree: dict, repeat: int) -> dict:
 
 def param_specs(cfg: ModelConfig) -> dict:
     """Nested dict of (shape, init, dtype) per parameter leaf, where init
-    is a normal's scale, ``"zeros"`` or ``"ones"`` and dtype a torch dtype
-    name — ``Model.init``'s tree."""
+    is a normal's scale, ``"zeros"``, ``"ones"`` or a key of ``INITS``, and
+    dtype a torch dtype name — ``Model.init``'s tree."""
     dt = cfg.dtype
     p = {"embed": ((cfg.vocab_size, cfg.d_model), 0.02, dt),
          "final_norm": _norm(cfg, cfg.d_model)}
@@ -134,7 +210,8 @@ def init_params(cfg: ModelConfig, device=None, generator=None, *,
                 seed: int = 0) -> dict:
     """``Model.init``'s parameter tree for `cfg` on `device` (``None`` →
     CUDA), drawn from `generator` (seeded with `seed` when None): normal ×
-    the JAX init's scale in f32, then cast to the leaf's dtype."""
+    the JAX init's scale in f32 (or an ``INITS`` formula), then cast to the
+    leaf's dtype."""
     import torch
     dev = resolve_device(device)
     g = _generator(dev, generator, seed)
@@ -146,6 +223,8 @@ def init_params(cfg: ModelConfig, device=None, generator=None, *,
             return torch.zeros(shape, dtype=pdt, device=dev)
         if how == "ones":
             return torch.ones(shape, dtype=pdt, device=dev)
+        if isinstance(how, str):
+            return INITS[how](shape, g, dev).to(pdt)
         return torch.randn(shape, generator=g, device=dev,
                            dtype=torch.float32).mul_(how).to(pdt)
 

@@ -63,7 +63,10 @@ def make_train_step(model, optimizer, *, lr_fn=None, grad_accum: int = 1,
         live = [p.detach().requires_grad_() for _, p in leaves]
         with torch.enable_grad():
             loss, metrics = model.loss(tree_unflatten(params, live), batch)
-            grads = torch.autograd.grad(loss, live)
+            # a leaf the loss never reads (an encoder's token embedding)
+            # gets zeros, as from jax.grad
+            grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                        materialize_grads=True)
         return loss.detach(), metrics, tree_unflatten(params, list(grads))
 
     def train_step(state, batch):

@@ -163,11 +163,14 @@ def test_cuda_entry_points_raise_without_card():
         tserve.run(ARCH, workdir="unused", **SERVE)
 
 
-def test_unported_families_raise():
+def test_unported_families_raise(tmp_path):
+    """Every family is ported (``tests/test_torch_families.py``): a
+    pattern of SSM blocks builds, and what still raises is what the JAX
+    launcher refuses too — serving an encoder, which has no decode path."""
     from repro_torch.configs import SSM
-    cfg = dataclasses.replace(reduced(get_config(ARCH)), pattern=(SSM,))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Model(cfg)
-    # the training loss is ported (test_torch_train.py); the encoder is not
-    with pytest.raises(NotImplementedError):
-        Model(reduced(get_config(ARCH))).encode({}, None)
+    cfg = dataclasses.replace(reduced(get_config(ARCH)), pattern=(SSM,),
+                              ssm=reduced(get_config("mamba2-780m")).ssm)
+    assert Model(cfg).stages[0].kinds == (SSM,)
+    with pytest.raises(SystemExit, match="encoder"):
+        tserve.run("hubert-xlarge", workdir=str(tmp_path), device="cpu",
+                   **SERVE)

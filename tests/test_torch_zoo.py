@@ -88,7 +88,11 @@ def _specs(pairs):
 
 
 def test_arch_ids_are_the_attention_families():
-    assert ARCH_IDS == tuple(sorted(ZOO + ["gemma3-1b"]))
+    """The attention families and, since the SSM, RG-LRU and encoder
+    slice, the three others (``tests/test_torch_families.py``)."""
+    assert ARCH_IDS == tuple(sorted(ZOO + ["gemma3-1b", "mamba2-780m",
+                                           "recurrentgemma-9b",
+                                           "hubert-xlarge"]))
     for arch in ARCH_IDS:
         Model(get_config(arch))
 
