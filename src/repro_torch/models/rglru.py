@@ -17,6 +17,14 @@ from .layers import causal_conv1d
 _C = 8.0  # Griffin's fixed recurrence sharpness constant
 
 
+def init_lam(shape, g, dev):
+    """λ = log(expm1(−log(a0) / c)), a0 ~ U[0.9, 0.999]: a decay of a0 at
+    r = 1 (the reference's init of ``lam``)."""
+    import torch
+    a0 = torch.rand(shape, generator=g, device=dev) * (0.999 - 0.9) + 0.9
+    return torch.log(torch.expm1(-torch.log(a0) / _C))
+
+
 def _gates(params, u):
     """u: (B, S, W) → (a, b) in f32: the decay a = exp(−c·softplus(λ)·r)
     and the input b = sqrt(1 − a²)·(i · u)."""

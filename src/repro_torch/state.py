@@ -26,10 +26,10 @@ from .configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, SSM, ModelConfig,
                            build_stages)
 from .core.split_state import map_leaves
 from .devices import resolve_device
+from .models.rglru import init_lam
 
 M_SCALE = 1e-3          # |m| of a trained AdamW run, roughly
 V_SCALE = 2e-3          # v ~ (V_SCALE · N(0,1))²
-_RGLRU_C = 8.0          # models/rglru.py::_C
 
 
 def _a_log(shape, g, dev):
@@ -51,17 +51,9 @@ def _dt_bias(shape, g, dev):
     return dt0 + torch.log(-torch.expm1(-dt0))
 
 
-def _lam(shape, g, dev):
-    """λ = log(expm1(−log(a0) / 8)), a0 ~ U[0.9, 0.999]: a decay of a0 at
-    r = 1."""
-    import torch
-    a0 = torch.rand(shape, generator=g, device=dev) * (0.999 - 0.9) + 0.9
-    return torch.log(torch.expm1(-torch.log(a0) / _RGLRU_C))
-
-
 # named inits of ``param_specs`` beside a normal's scale, "zeros", "ones":
 # fn(shape, generator, device) → f32 tensor
-INITS = {"a_log": _a_log, "dt_bias": _dt_bias, "lam": _lam}
+INITS = {"a_log": _a_log, "dt_bias": _dt_bias, "lam": init_lam}
 
 
 def _norm(cfg: ModelConfig, d: int) -> dict:

@@ -89,6 +89,29 @@ def test_flash_attention_plain_masks_match_pallas(window, softcap, causal):
     _close(ogot, oref, 2e-5)
 
 
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_attention_plain_head_dim_80_matches_pallas(window, dtype):
+    """hubert-xlarge's head dim 80, non-causal (with and without a
+    two-sided window), scale 1/sqrt(80): the plain version against the
+    Pallas kernel, whose block takes the full D, and the naive oracles
+    against each other."""
+    B, S, H, D = 2, 80, 4, 80
+    rng = np.random.default_rng(D + window)
+    q, k, v = (_normal(rng, (B, S, H, D), dtype) for _ in range(3))
+    kw = dict(causal=False, window=window)
+    ref = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 block_q=16, block_k=16, interpret=True, **kw)
+    got = fa.flash_attention_plain(_port(q), _port(k), _port(v), **kw)
+    assert got.dtype == _port(q).dtype and got.shape == (B, S, H, D)
+    _close(got, ref, ATTN_TOL[dtype])
+    t = (0, 2, 1, 3)
+    oref = jref(*(jnp.asarray(a.transpose(t)) for a in (q, k, v)), **kw)
+    ogot = fa.attention_reference(*(_port(a.transpose(t)) for a in (q, k, v)),
+                                  **kw)
+    _close(ogot, oref, ATTN_TOL[dtype])
+
+
 def test_wrappers_take_plain_versions_on_cpu_and_do_not_count():
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.standard_normal((6, 32)).astype(np.float32))

@@ -20,17 +20,20 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
 from repro.configs import get_config as jget_config
 from repro.configs import reduced as jreduced
+from repro.kernels.flash_attention import \
+    attention_reference as jattention_reference
 from repro.models import layers as jlayers
 from repro.models import rglru as jrglru
 from repro.models import ssm as jssm
 from repro_torch.configs import get_config, reduced
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import from_jax_state, params_from_jax
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.models import layers, rglru, ssm
 from repro_torch.state import INITS
@@ -336,18 +339,22 @@ def test_k8_takes_every_head_dim_of_the_pallas_domain():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 3e-2)])
 def test_flash_plain_at_head_dim_80_noncausal(dtype, tol, window):
-    """K8's plain version at hubert's head dim 80, non-causal (with and
-    without a two-sided window), against ``attention_reference`` (the
-    ``tests/test_kernels.py`` tolerances); the scale is 1/√80."""
+    """K8's plain version (what the wrapper runs on the CPU) at hubert's
+    head dim 80, non-causal (with and without a two-sided window), against
+    the JAX package's ``attention_reference`` on the same inputs (the
+    ``tests/test_kernels.py`` tolerances); the scale is 1/√80 in both."""
     rng = np.random.default_rng(80 + window)
     B, S, H, D = 2, 130, 4, 80
-    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, D))
-                                .astype(np.float32)).to(dtype)
-               for _ in range(3))
-    got = fa.flash_attention(q, k, v, causal=False, window=window)
+    np_dt = np.float32 if dtype == torch.float32 else ml_dtypes.bfloat16
+    q, k, v = (rng.standard_normal((B, S, H, D)).astype(np.float32)
+               .astype(np_dt) for _ in range(3))
+    got = fa.flash_attention(*(from_jax_state({"a": a}, device="cpu")["a"]
+                               for a in (q, k, v)),
+                             causal=False, window=window)
     assert got.dtype == dtype and got.shape == (B, S, H, D)
-    ref = fa.attention_reference(*(t.transpose(1, 2) for t in (q, k, v)),
-                                 causal=False, window=window,
-                                 scale=1.0 / np.sqrt(80))
-    torch.testing.assert_close(got.float(), ref.transpose(1, 2).float(),
-                               rtol=0, atol=tol)
+    ref = jattention_reference(
+        *(jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (q, k, v)),
+        causal=False, window=window)
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        np.asarray(ref, np.float32).transpose(0, 2, 1, 3), rtol=0, atol=tol)
