@@ -2525,10 +2525,291 @@ def families(dev, card: str, profile: bool = False) -> dict:
     return out
 
 
+# the sharding phase: gemma3-1b at full width, SHARD_LAYERS of its 26 layers
+SHARD_LAYERS = 6
+SHARD_MESH = (2, 2)
+SHARD_MIN_FREE_BYTES = 15e9
+
+
+def _shard_tcfg(workdir: Path):
+    from repro_torch.train.loop import TrainerConfig
+    return TrainerConfig(workdir=str(workdir), log_every=1, **TRAIN,
+                         **TRAIN_CKPT)
+
+
+def _shard_cfg():
+    import dataclasses
+
+    from repro_torch.configs import gemma3_1b
+    return dataclasses.replace(gemma3_1b.CONFIG, n_layers=SHARD_LAYERS)
+
+
+def sharding_rank(root: Path) -> int:
+    """One CPU rank of phase B (``--sharding-rank``, spawned by
+    ``sharding``): joins the gloo group of SHARD_MESH's ranks, restores
+    phase A's step-2 checkpoint onto the (2,2) mesh through the port's
+    ``Trainer`` (this rank reads only the saved shards that overlap its
+    ranges), and saves the state again as a (2,2) checkpoint into
+    ``root/b``. Prints one RESULT line."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // world))
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(root / "rendezvous"), world),
+        rank=rank, world_size=world)
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.core.split_state import leaf_paths
+    from repro_torch.core.storage import Tier, TieredStore
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.partition import param_specs
+    from repro_torch.train.loop import Trainer
+
+    mesh = make_host_mesh(SHARD_MESH, ("data", "model"), device="cpu")
+    t = Trainer(_shard_cfg(), _shard_tcfg(root / "a"),
+                store=TieredStore(Tier("fast", root / "a")), device="cpu",
+                mesh=mesh)
+    out = {"rank": rank}
+    t0 = time.monotonic()
+    t.init_or_restore()
+    out["restore_s"] = time.monotonic() - t0
+    out["restore_bytes_read"] = t.manager.bytes_read
+    out["restored_from"] = t.restored_from
+    out["digest"] = t.params_digest()
+    out["local_bytes"] = sum(x.to_local().nbytes
+                             for _, x in leaf_paths(t.state))
+    mgr = CheckpointManager(TieredStore(Tier("fast", root / "b")),
+                            policy=t.manager.policy, device="cpu",
+                            group=t.manager.group)
+    t0 = time.monotonic()
+    rep = mgr.save(t.state, t.py_step, extra=t._extra())
+    out["save_s"] = time.monotonic() - t0
+    out.update({k: rep[k] for k in ("bytes", "rank_bytes",
+                                    "new_object_bytes", "seconds")})
+    if rank == 0:
+        # every leaf the partition rules shard has a record per range
+        leaves = mgr.load_manifest(t.py_step)["leaves"]
+        specs = param_specs(t._abstract["params"], mesh)
+        out["sharded_leaves"] = 0
+        for name, sh in leaf_paths(specs):
+            if any(e is not None for e in sh.spec):
+                n = len(leaves["params/" + name]["shards"])
+                if n < 2:
+                    out["unsharded"] = name
+                out["sharded_leaves"] += 1
+        out["lower_half"] = mgr.load_manifest(t.py_step)["extra"][
+            "lower_half"]
+    mgr.close()
+    t.manager.close()
+    print("RESULT::" + json.dumps(out), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def sharding(dev, card: str) -> dict:
+    """Phase 10, the state moved card → four ranks → card: gemma3-1b at
+    full width (SHARD_LAYERS of 26 layers), AdamW, batch 4 × 1024, the
+    checkpoint round's policy, deterministic algorithms.
+
+    A. The card as mesh (1,1) over NCCL (world size 1): ``Trainer(mesh=)``
+       takes three steps and saves at step 2; ``params_digest`` after
+       steps 2 and 3, and step 3's loss.
+    B. Four CPU ranks (gloo; ``--sharding-rank``, spawned here with
+       ``device="cpu"`` asked for by name and no card visible) restore A's
+       step 2 onto a (2,2) ``("data", "model")`` mesh: each rank's
+       ``params_digest`` must equal A's; they save the state again as a
+       (2,2) checkpoint, whose manifest must hold more than one shard
+       record for every leaf the partition rules shard.
+    C. The card restores B's checkpoint onto (1,1) (M×N, 4 ranks to 1; K4
+       decodes the params on the card): ``params_digest`` equal to A's
+       step 2; it takes step 3, whose loss and ``params_digest`` must
+       equal A's bit for bit.
+
+    Launches are read per segment: K7/K8 in A's steps, K1-K3 in A's save,
+    K4 in C's restore, K7/K8 in C's step."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.storage import Tier, TieredStore
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.loop import Trainer
+
+    root = ROOT / "build" / "chip_smoke_sharding"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    if free < SHARD_MIN_FREE_BYTES:
+        fail(f"only {free} bytes free under {root}; need "
+             f"{int(SHARD_MIN_FREE_BYTES)} for the sharding checkpoints")
+    cfg = _shard_cfg()
+    os.environ["REPRO_CKPT_KEEPALIVE_S"] = "60"
+    out = {"arch": cfg.arch_id, "n_layers": SHARD_LAYERS, "of_layers": 26,
+           **TRAIN, "mesh_b": list(SHARD_MESH), "card": card,
+           "launches": {}}
+    procs = []
+    try:
+        # ---- A: the card, mesh (1,1), NCCL ------------------------------
+        mesh = make_host_mesh((1, 1), ("data", "model"), device=dev)
+        out["backend_a"] = dist.get_backend()
+        if out["backend_a"] != "nccl":
+            fail(f"the card's process group is {out['backend_a']}, not nccl")
+        rounds: list = []
+        tA = Trainer(cfg, _shard_tcfg(root / "a"),
+                     store=TieredStore(Tier("fast", root / "a")),
+                     device=dev, mesh=mesh)
+        _record_rounds(tA.manager, rounds)
+        tA.init_or_restore()
+        out["state_bytes"] = sum(t.to_local().nbytes for t in
+                                 _leaves(tA.state))
+        reset_counts()
+        tA.fit(3, stop_after=2)           # saves step 2 (ckpt_every=2)
+        torch.cuda.synchronize()
+        out["launches"]["a_steps_and_save"] = read_counts()
+        digest2 = tA.params_digest()
+        reset_counts()
+        tA.fit(3, stop_after=1)           # step 3, no save (paused)
+        out["launches"]["a_step3"] = read_counts()
+        digest3 = tA.params_digest()
+        loss3 = tA.history[-1]["loss"]
+        out["a"] = {"loss": [h["loss"] for h in tA.history],
+                    "step_s": [h["step_s"] for h in tA.history],
+                    "save": rounds[0], "digest2": digest2[:16],
+                    "digest3": digest3[:16]}
+        if tA.manager.latest_step() != 2 or rounds[0]["step"] != 2:
+            fail(f"phase A's latest checkpoint is step "
+                 f"{tA.manager.latest_step()}, not 2")
+        tA.manager.close()
+        del tA
+        torch.cuda.empty_cache()
+        say(f"sharding A ({card}): 3 steps on mesh (1,1) over "
+            f"{out['backend_a']}, losses "
+            f"{out['a']['loss']}, save at step 2 {json.dumps(rounds[0])}")
+        # ---- B: four CPU ranks, mesh (2,2), gloo ------------------------
+        world = SHARD_MESH[0] * SHARD_MESH[1]
+        env = {**os.environ, "WORLD_SIZE": str(world),
+               "CUDA_VISIBLE_DEVICES": "",
+               "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 4)
+                                          // world))}
+        t0 = time.monotonic()
+        logs = [open(root / f"rank{r}.log", "w+") for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--sharding-rank",
+             str(root)], stdout=subprocess.PIPE, stderr=logs[r], text=True,
+            env={**env, "RANK": str(r)}) for r in range(world)]
+        ranks = []
+        for r, p in enumerate(procs):
+            stdout, _ = p.communicate(timeout=900)
+            logs[r].seek(0)
+            err = logs[r].read()
+            logs[r].close()
+            if p.returncode:
+                fail(f"phase B rank {r} exited {p.returncode}; its stderr "
+                     f"ends:\n{err[-4000:]}")
+            ranks.append(json.loads(next(
+                line for line in stdout.splitlines()
+                if line.startswith("RESULT::"))[len("RESULT::"):]))
+        out["b_wall_s"] = time.monotonic() - t0
+        out["b"] = ranks
+        for r in ranks:
+            if r["restored_from"] != 2 or r["digest"] != digest2:
+                fail(f"phase B rank {r['rank']} restored step "
+                     f"{r['restored_from']} with params_digest "
+                     f"{r['digest'][:16]} != phase A's {digest2[:16]}")
+        if "unsharded" in ranks[0] or ranks[0]["sharded_leaves"] == 0:
+            fail(f"phase B's manifest holds one shard record for "
+                 f"{ranks[0].get('unsharded')}, a leaf the partition rules "
+                 "shard")
+        say(f"sharding B ({card}): 4 CPU ranks restored step 2 onto "
+            f"{SHARD_MESH} (bytes read per rank "
+            f"{[r['restore_bytes_read'] for r in ranks]}, seconds "
+            f"{[round(r['restore_s'], 3) for r in ranks]}), digests equal "
+            f"A's; (2,2) save {ranks[0]['seconds']:.3f} s, "
+            f"{ranks[0]['bytes']} bytes, new_object_bytes "
+            f"{ranks[0]['new_object_bytes']}, per rank "
+            f"{[r['rank_bytes'] for r in ranks]}")
+        # ---- C: the card restores B's (2,2) checkpoint onto (1,1) -------
+        tC = Trainer(cfg, _shard_tcfg(root / "b"),
+                     store=TieredStore(Tier("fast", root / "b")),
+                     device=dev, mesh=mesh)
+        ends: list = []
+        inner = tC.step_fn
+
+        def timed_step(state, batch):
+            res = inner(state, batch)
+            torch.cuda.synchronize()
+            ends.append(time.monotonic())
+            return res
+
+        tC.step_fn = timed_step
+        reset_counts()
+        t0 = time.monotonic()
+        tC.init_or_restore()
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        out["launches"]["c_restore"] = read_counts()
+        t1 = time.monotonic()
+        digest_c2 = tC.params_digest()
+        check_s = time.monotonic() - t1
+        if tC.restored_from != 2 or digest_c2 != digest2:
+            fail(f"phase C restored step {tC.restored_from} with "
+                 f"params_digest {digest_c2[:16]} != phase A's step 2 "
+                 f"{digest2[:16]}")
+        reset_counts()
+        tC.fit(3, stop_after=1)
+        out["launches"]["c_step3"] = read_counts()
+        loss_c3 = tC.history[-1]["loss"]
+        digest_c3 = tC.params_digest()
+        out["c"] = {"restore_s": restore_s,
+                    "restore_bytes_read": tC.manager.bytes_read,
+                    "restore_to_first_step_s": ends[0] - t0 - check_s,
+                    "loss3": loss_c3, "digest3": digest_c3[:16]}
+        tC.manager.close()
+        del tC
+        if loss_c3 != loss3 or digest_c3 != digest3:
+            fail(f"phase C's step 3 (loss {loss_c3!r}, digest "
+                 f"{digest_c3[:16]}) differs from A's (loss {loss3!r}, "
+                 f"digest {digest3[:16]})")
+        say(f"sharding C ({card}): restored B's (2,2) checkpoint onto (1,1) "
+            f"in {restore_s:.3f} s ({out['c']['restore_bytes_read']} bytes "
+            f"read), first step done {out['c']['restore_to_first_step_s']:.3f}"
+            f" s after the restore began; step 3 loss {loss_c3!r} and "
+            "params_digest equal A's bit for bit")
+        need = {"a_steps_and_save": ("rmsnorm", "flash_attention",
+                                     "gear_scan", "byteplane_fwd",
+                                     "rle_emit"),
+                "c_restore": ("byteplane_inv",),
+                "c_step3": ("rmsnorm", "flash_attention")}
+        for seg, kernels in need.items():
+            for k in kernels:
+                if out["launches"][seg][k] <= 0:
+                    fail(f"kernel {k} was not launched in the sharding "
+                         f"phase's {seg}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        os.environ.pop("REPRO_CKPT_KEEPALIVE_S", None)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    say(f"sharding: launches {json.dumps(out['launches'])} ({card})")
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.core.split_state import leaf_paths
+    return [t for _, t in leaf_paths(tree)]
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"{ROOT} is not a checkout of the repository "
              "(src/repro_torch missing)")
+    if sys.argv[1:2] == ["--sharding-rank"]:
+        return sharding_rank(Path(sys.argv[2]))
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -2598,6 +2879,14 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--sharding-only" in sys.argv[1:]:
+        sh = sharding(dev, card)
+        say(card)
+        say(json.dumps({"sharding": sh}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--reliability-only" in sys.argv[1:]:
         rel = reliability(dev, card)
         say(card)
@@ -2626,6 +2915,8 @@ def main() -> int:
     parity_fam = families_parity(dev)
     fam = families(dev, card, profile=profile)
     fam["parity"] = parity_fam
+    torch.cuda.empty_cache()
+    shard = sharding(dev, card)
     codec = ("byteplane_inv", "quantize_blocks", "dequantize_blocks")
     rows = kernel_table(dev, embed, {
         **launches, **{k: train_launches[k] for k in codec}})
@@ -2640,6 +2931,8 @@ def main() -> int:
             seg: c[row["name"]] for seg, c in zoo_stats["launches"].items()}
         row["launches_families"] = {
             seg: c[row["name"]] for seg, c in fam["launches"].items()}
+        row["launches_sharding"] = {
+            seg: c[row["name"]] for seg, c in shard["launches"].items()}
         if row["name"] == "flash_attention":
             row["families"] = fam["k8"]
         elif row["name"] == "rmsnorm":
@@ -2649,6 +2942,7 @@ def main() -> int:
     say(json.dumps({"reliability": rel}))
     say(json.dumps({"zoo": zoo_stats}))
     say(json.dumps({"families": fam}))
+    say(json.dumps({"sharding": shard}))
     say(json.dumps({"main_path": stats, "serving": serve_stats,
                     "training": train_stats}))
     say(json.dumps({"kernels": rows}))
@@ -2656,7 +2950,7 @@ def main() -> int:
         json.dumps({"card": card, "main_path": stats,
                     "serving": serve_stats, "training": train_stats,
                     "reliability": rel, "zoo": zoo_stats, "families": fam,
-                    "kernels": rows},
+                    "sharding": shard, "kernels": rows},
                    indent=1))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,9 +18,11 @@ from .core.split_state import map_leaves
 from .devices import resolve_device
 
 
-def from_jax_state(np_tree, device=None):
+def from_jax_state(np_tree, device=None, shardings=None):
     """Nested dict of numpy arrays → nested dict of tensors on `device`
-    (``None`` → CUDA)."""
+    (``None`` → CUDA); with `shardings` (a matching tree of
+    ``sharding.partition.NamedSharding``) each full leaf is distributed by
+    its placements, this rank keeping its local range as a ``DTensor``."""
     import torch
     dev = resolve_device(device)
 
@@ -35,7 +37,11 @@ def from_jax_state(np_tree, device=None):
                 .view(torch.uint32)
         return torch.from_numpy(a).to(dev)
 
-    return map_leaves(leaf, np_tree)
+    tree = map_leaves(leaf, np_tree)
+    if shardings is None:
+        return tree
+    from .sharding.partition import distribute_tree
+    return distribute_tree(tree, shardings)
 
 
 def params_from_jax(np_params, device=None):
@@ -50,5 +56,8 @@ def params_from_jax(np_params, device=None):
 def to_numpy_state(state):
     """Nested dict of tensors → nested dict of host numpy arrays; bfloat16
     leaves come back as ``core.codec.BF16`` (their uint16 bit pattern,
-    logical dtype ``bfloat16``)."""
-    return map_leaves(to_host, state)
+    logical dtype ``bfloat16``). A ``DTensor`` leaf is gathered to its
+    full tensor first."""
+    return map_leaves(lambda t: to_host(t.full_tensor()
+                                        if hasattr(t, "full_tensor") else t),
+                      state)

@@ -1,8 +1,7 @@
 """The checkpoint/restart engine: save and restore of a training state
 through the content-addressed store, with the device encode on CUDA, and
 the reliability plane around it (fault injection, scrub and degraded
-commit, WeightSync). Exports the JAX package's ``repro.core`` names, all
-but ``state_shardings``, which waits for sharding."""
+commit, WeightSync). Exports the JAX package's ``repro.core`` names."""
 from .atomic import CrashInjector, CrashPoint
 from .cas import ChunkStore
 from .cdc import GearChunker
@@ -26,7 +25,8 @@ from .restore_path import (ReadCache, RestorePlan, RestoreSession,
 from .save_path import PersistStage, SavePlan, SaveSession
 from .split_state import (abstract_train_state, config_digest,
                           init_train_state, leaf_paths,
-                          lower_half_descriptor, tree_unflatten)
+                          lower_half_descriptor, state_shardings,
+                          tree_unflatten)
 from .storage import RemoteTier, Tier, TieredStore, default_store
 from .weightsync import (PeerTier, WeightPublisher, WeightSubscriber,
                          build_fleet)
@@ -49,5 +49,5 @@ __all__ = [
     "abstract_train_state", "build_fleet", "config_digest", "default_store",
     "init_train_state", "is_tier_full", "is_transient", "leaf_paths",
     "lower_half_descriptor",
-    "quiesce_device_state", "retry_io", "wrap_store",
+    "quiesce_device_state", "retry_io", "state_shardings", "wrap_store",
 ]

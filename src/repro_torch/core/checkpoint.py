@@ -105,12 +105,19 @@ class CheckpointManager:
     maps each onto its policy field with identical validation).
 
     ``device`` (``None`` → CUDA) is where the device encode runs and where
-    ``restore`` places leaves; the tests pass ``device="cpu"``."""
+    ``restore`` places leaves; the tests pass ``device="cpu"``.
+
+    ``group`` (a ``torch.distributed`` process group, gloo) makes the
+    manager one rank of a sharded save: every process of the group saves
+    the items it owns, and the two-phase commit runs across them over
+    `group` (``_write_round``). Rank 0 of the group writes the one
+    manifest. ``None`` is a one-process manager."""
 
     def __init__(self, store: TieredStore,
                  policy: CheckpointPolicy | None = None, *, device=None,
-                 **legacy):
+                 group=None, **legacy):
         self.device = resolve_device(device)
+        self.group = group
         if legacy:
             if policy is not None:
                 raise TypeError(
@@ -282,7 +289,8 @@ class CheckpointManager:
             registry = build_registry(state)
             items = self._snapshot(state)
             snap_s = time.monotonic() - t0
-            total = sum(a.nbytes for _, _, a in items)
+            # another rank's items (None here) pin nothing in this process
+            total = sum(a.nbytes for _, _, a in items if a is not None)
             # P8 preflight must see the WHOLE queue's unwritten footprint:
             # earlier admitted rounds' chunks may not have hit the tier
             # yet, so their snapshot bytes (minus this round's own
@@ -470,8 +478,18 @@ class CheckpointManager:
                      degraded_hint: bool = False,
                      overlapped: bool = False) -> dict:
         stage = atomic.staging_dir(self.store.root, step)
+        lead = True
+        if self.group is not None:
+            # one staging dir for the round: full-mode shard files of every
+            # process land where rank 0 commits them
+            import torch.distributed as dist
+            name = [stage.name]
+            dist.broadcast_object_list(name, src=0, group=self.group)
+            stage = stage.parent / name[0]
+            lead = dist.get_rank(self.group) == 0
         stage.mkdir(parents=True, exist_ok=True)
-        atomic.mark_pending(stage, {"step": step, "t": time.time()})
+        if lead:
+            atomic.mark_pending(stage, {"step": step, "t": time.time()})
         incremental = self.mode == "incremental"
         pre_degraded = self.chunks.degraded_writes
 
@@ -487,6 +505,93 @@ class CheckpointManager:
             overlapped=overlapped,
             device_precondition=self.device_precondition,
             device_entropy=self.device_entropy, device=self.device)
+        if self.group is None:
+            return self._commit_round(
+                outcome, stage, registry, state, step, extra, total, t0,
+                snap_s, wait_s, crash, commit_total, incremental,
+                degraded_hint, pre_degraded, overlapped)
+        # two-phase commit across processes: each process has prepared
+        # (written and fsynced) its own items; rank 0 gathers every
+        # process's vote, records and refcount deltas, writes the one
+        # manifest or aborts, and every process learns the outcome
+        # before its save returns
+        vote = {"ok": outcome.ok, "reason": outcome.reason, "bytes": total,
+                "records": (outcome.shard_records if incremental
+                            else outcome.plan.manifest_shards)
+                if outcome.ok else {},
+                "refs": dict(self.coordinator.round.chunk_refs)
+                if outcome.ok and self.coordinator.round else {},
+                "stats": dict(outcome.stats),
+                "new_objects": outcome.new_objects,
+                "degraded": self.chunks.degraded_writes > pre_degraded}
+        rank = dist.get_rank(self.group)
+        votes = [None] * dist.get_world_size(self.group) if rank == 0 \
+            else None
+        dist.gather_object(vote, votes, dst=0, group=self.group)
+        if rank != 0:
+            decision = [None]
+            dist.broadcast_object_list(decision, src=0, group=self.group)
+            if outcome.ok:
+                # rank 0 published the round's merged refcounts
+                self.coordinator.finish_round(decision[0]["ok"])
+            commit_total()
+            if not decision[0]["ok"]:
+                raise AbortedError("checkpoint aborted", step=step,
+                                   reason=decision[0]["reason"])
+            report = dict(decision[0]["report"], snapshot_s=snap_s,
+                          rank_bytes=total, drain_wait_s=wait_s,
+                          blocking_s=snap_s if overlapped
+                          else time.monotonic() - t0)
+            self.last_report = report
+            return report
+        decision = {"ok": False, "reason": ""}
+        try:
+            failed = [(r, v["reason"]) for r, v in enumerate(votes)
+                      if not v["ok"]]
+            if failed:
+                if outcome.ok:
+                    self.coordinator.finish_round(False)
+                outcome.ok = False
+                outcome.reason = "; ".join(f"rank {r}: {why}"
+                                           for r, why in failed)
+            else:
+                merged = outcome.shard_records if incremental \
+                    else outcome.plan.manifest_shards
+                objects: dict | None = {}
+                for v in votes:
+                    merged.update(v["records"])
+                    if v["new_objects"] is None or objects is None:
+                        objects = None
+                    else:
+                        objects.update(v["new_objects"])
+                for v in votes[1:]:
+                    self.coordinator.round.chunk_refs.update(v["refs"])
+                    for k, n in v["stats"].items():
+                        outcome.stats[k] += n
+                if objects is not None:
+                    # an object two processes raced to write counts once,
+                    # as in one process (``ChunkStore``'s in-flight set)
+                    outcome.stats["new_object_bytes"] = \
+                        sum(objects.values())
+            decision["reason"] = outcome.reason
+            report = self._commit_round(
+                outcome, stage, registry, state, step, extra,
+                sum(v["bytes"] for v in votes), t0, snap_s, wait_s, crash,
+                commit_total, incremental,
+                degraded_hint or any(v["degraded"] for v in votes),
+                pre_degraded, overlapped)
+            report["rank_bytes"] = total
+            decision = {"ok": True, "report": report}
+            return report
+        finally:
+            dist.broadcast_object_list([decision], src=0, group=self.group)
+
+    def _commit_round(self, outcome, stage, registry, state, step, extra,
+                      total, t0, snap_s, wait_s, crash, commit_total,
+                      incremental, degraded_hint, pre_degraded,
+                      overlapped) -> dict:
+        """Stages 2–3 of a round whose phase 1 is decided: abort, or write
+        the manifest, commit, publish refcounts, maintain and drain."""
         if not outcome.ok:
             # ABORT leaks nothing: no manifest, no LATEST move, and no
             # refcounts published — chunk objects a dead rank managed to
@@ -684,7 +789,7 @@ class CheckpointManager:
                             readable=list(READABLE_FORMATS), step=step)
         return manifest
 
-    def _plan_restore(self, abstract_state, step):
+    def _plan_restore(self, abstract_state, shardings, step):
         """Shared restore prelude: resolve the step, load + reconcile the
         manifest, and build the per-leaf plan. Returns (step, manifest,
         step_dir, plan)."""
@@ -694,15 +799,27 @@ class CheckpointManager:
                                     root=str(self.store.root))
         # one shared IO-retry deadline for the whole restore round
         self.chunks.begin_io_window()
+        self._restore.bytes_read = 0
         manifest = self.load_manifest(step)
         # v6: the writer's recorded policy wins over a mismatched caller —
         # logged reconciliation, and future saves dedup against history
         self._maybe_adopt_manifest_policy(manifest, step)
         step_dir = atomic.committed_dir(Path("."), step).name
         paths = leaf_paths(abstract_state)
+        shard_flat = [None] * len(paths) if shardings is None \
+            else [sh for _, sh in leaf_paths(shardings)]
+        if len(shard_flat) != len(paths):
+            raise ValueError("shardings and abstract_state differ in "
+                             f"leaves ({len(shard_flat)} != {len(paths)})")
         plan = RestorePlan.build(manifest, step_dir, [n for n, _ in paths],
-                                 [leaf for _, leaf in paths], step)
+                                 [leaf for _, leaf in paths], shard_flat,
+                                 step)
         return step, manifest, step_dir, plan
+
+    @property
+    def bytes_read(self) -> int:
+        """Stored bytes the latest restore read (this process)."""
+        return self._restore.bytes_read
 
     @staticmethod
     def _drain_futures(futures):
@@ -715,11 +832,15 @@ class CheckpointManager:
                 except BaseException:  # noqa — surfaced by the first
                     pass
 
-    def restore(self, abstract_state, *, step: int | None = None,
-                validate: bool = True, leaf_priority=None):
+    def restore(self, abstract_state, shardings=None, *,
+                step: int | None = None, validate: bool = True,
+                leaf_priority=None):
         """Restore onto ``self.device``. `abstract_state`: nested dict of
-        tensors (or meta tensors — only shapes/dtypes are used). Returns
-        (state, extra).
+        tensors (or meta tensors — only shapes/dtypes are used);
+        `shardings`: the matching tree of ``sharding.partition.
+        NamedSharding`` (every leaf a ``DTensor`` of this rank's range,
+        read from the saved shards that overlap it — M×N), or None for one
+        device. Returns (state, extra).
 
         Pipelined engine: per-leaf host fetches are dispatched in
         FIRST-USE order (``elastic.leaf_first_use_class``, or a
@@ -728,8 +849,8 @@ class CheckpointManager:
         fetches still streaming behind them, no ``map_ordered`` barrier.
         The serial engine keeps the original two-phase path. Device
         tensors are built on the calling thread either way."""
-        step, manifest, step_dir, plan = self._plan_restore(abstract_state,
-                                                            step)
+        step, manifest, step_dir, plan = self._plan_restore(
+            abstract_state, shardings, step)
         if self._restore_exec.serial:
             prefetched = self._restore.prefetch(plan)
             out = [self._restore.leaf_to_device(step_dir, job, pre)
@@ -751,8 +872,9 @@ class CheckpointManager:
         self._cache.clear()
         return state, manifest.get("extra", {})
 
-    def restore_streaming(self, abstract_state, *, step: int | None = None,
-                          validate: bool = True, leaf_priority=None):
+    def restore_streaming(self, abstract_state, shardings=None, *,
+                          step: int | None = None, validate: bool = True,
+                          leaf_priority=None):
         """Streaming restore-behind: returns ``(RestoreStream, extra)``
         with every per-leaf host fetch already in flight in first-use
         order. ``stream.wait_frontier()`` blocks only until the leading
@@ -763,7 +885,8 @@ class CheckpointManager:
         future, so the restored state is bit-exact with the blocking path
         by construction. Registry validation and the read-cache release
         run once, inside the completion gate."""
-        _, manifest, _, plan = self._plan_restore(abstract_state, step)
+        _, manifest, _, plan = self._plan_restore(abstract_state,
+                                                  shardings, step)
         schedule, frontier = plan.first_use_schedule(
             leaf_priority, self.policy.restore.frontier_classes)
         futures = self._restore.prefetch_async(plan, schedule)

@@ -49,10 +49,12 @@ def build_registry(state) -> list:
         except TypeError:
             if dtype == "bfloat16":
                 itemsize = 2
-        # single-device tensors carry no sharding spec (as a JAX array on
-        # one device records "")
+        # a DTensor records its placements; a single-device tensor
+        # carries no sharding spec (as a JAX array on one device records "")
+        sh = repr(tuple(leaf.placements)) if hasattr(leaf, "placements") \
+            else ""
         rows.append(Region(name, shape, dtype, size * itemsize,
-                           _role(name)))
+                           _role(name), sh))
     return rows
 
 

@@ -23,6 +23,7 @@ digest-verified chunk-at-a-time reads, join-copy reassembly.
 """
 from __future__ import annotations
 
+import math
 import threading
 import time
 import warnings
@@ -61,10 +62,12 @@ class StagedLeaf:
     it, as ``(ShardRange, piece)`` pairs in the leaf's index space. A piece
     is a ``codec.Planes`` or ``codec.Quantized`` (a ``STAGED`` codec's
     shard before its last transform) or, for any other codec, the decoded
-    host array, each in its record's dtype."""
+    host array, each in its record's dtype. ``target`` is the range the
+    pieces fill (the whole leaf, or this rank's shard of it)."""
 
-    def __init__(self, pieces: list):
+    def __init__(self, pieces: list, target: ShardRange):
         self.pieces = pieces
+        self.target = target
 
 
 def uncovered(target: ShardRange, ranges: list) -> int:
@@ -78,8 +81,8 @@ def uncovered(target: ShardRange, ranges: list) -> int:
     for r in ranges:
         ov = overlap(r, target)
         if ov is not None:
-            covered[tuple(slice(a, b) for a, b in
-                          zip(ov.start, ov.stop))] = True
+            covered[tuple(slice(a - s, b - s) for a, b, s in
+                          zip(ov.start, ov.stop, target.start))] = True
     return int(covered.size - np.count_nonzero(covered))
 
 
@@ -138,14 +141,16 @@ class ReadCache:
 
 
 class RestorePlan:
-    """Per-leaf restore jobs. Pure planning: no IO, no device access. Each
-    job pairs a manifest leaf record with the abstract leaf (anything with
-    ``shape`` and ``dtype``: a tensor, a meta tensor) and the canonical
-    numpy dtype its host bytes decode to (bf16 as ``codec.BF16``)."""
+    """Per-leaf restore jobs for the CURRENT topology. Pure planning: no
+    IO, no device access. Each job pairs a manifest leaf record with the
+    abstract leaf (anything with ``shape`` and ``dtype``: a tensor, a meta
+    tensor), its target sharding (a ``sharding.partition.NamedSharding``
+    on a ``DeviceMesh``, or None for one device) and the canonical numpy
+    dtype its host bytes decode to (bf16 as ``codec.BF16``)."""
 
     def __init__(self, jobs: list, step_dir: str,
                  written_policy: dict | None = None):
-        self.jobs = jobs        # (name, rec, abstract leaf, np_dtype)
+        self.jobs = jobs        # (name, rec, abstract leaf, sharding, np_dtype)
         self.step_dir = step_dir
         # manifest v6: the writer's recorded policy block rides the plan
         # (restore itself is record-driven; the manager adopts this for
@@ -154,16 +159,16 @@ class RestorePlan:
 
     @classmethod
     def build(cls, manifest: dict, step_dir: str, names: list, flat: list,
-              step: int) -> "RestorePlan":
+              shard_flat: list, step: int) -> "RestorePlan":
         leaves = manifest["leaves"]
         jobs = []
-        for name, sds in zip(names, flat):
+        for name, sds, sharding in zip(names, flat, shard_flat):
             rec = leaves.get(name)
             if rec is None:
                 raise MissingShardError("leaf missing from checkpoint",
                                         leaf=name, step=step)
             np_dtype = codec_mod._np_dtype(codec_mod.dtype_name(sds))
-            jobs.append((name, rec, sds, np_dtype))
+            jobs.append((name, rec, sds, sharding, np_dtype))
         pol = manifest.get("policy")
         return cls(jobs, step_dir,
                    written_policy=pol if isinstance(pol, dict) else None)
@@ -183,6 +188,16 @@ class RestorePlan:
         lead = set(lead)
         frontier = [i for i in schedule if classes[i] in lead]
         return schedule, frontier
+
+    @staticmethod
+    def leaf_ranges(shape, sharding) -> list:
+        """Index ranges THIS PROCESS needs from one leaf — what the
+        host-fetch phase reads: the whole leaf on one device, this rank's
+        one local range on a mesh, so a rank reads O(its shards), not
+        O(global model)."""
+        if sharding is None:
+            return [ShardRange((0,) * len(shape), tuple(shape))]
+        return [sharding.local_range(tuple(shape))]
 
 
 class RestoreSession:
@@ -207,15 +222,23 @@ class RestoreSession:
         self.cache = cache
         self.device = device
         self.device_decode = False
+        # stored bytes this session read for its shards (cache hits
+        # excluded): what a rank's restore costs the storage
+        self.bytes_read = 0
+        self._read_lock = threading.Lock()
+
+    def _count_read(self, n: int):
+        with self._read_lock:
+            self.bytes_read += int(n)
 
     # -- leaf-level ----------------------------------------------------
     def fetch_host(self, step_dir: str, job):
-        """One leaf's host-side fetch: the whole leaf as a host array (one
-        device holds every leaf), or, for the device decode, a
-        ``StagedLeaf``. Pool-worker safe (pure numpy + IO)."""
-        name, rec, sds, np_dtype = job
-        shape = tuple(sds.shape)
-        target = ShardRange((0,) * len(shape), shape)
+        """One leaf's host-side fetch: the range this process holds (the
+        whole leaf on one device, the local shard on a mesh) as a host
+        array, or, for the device decode, a ``StagedLeaf``. Pool-worker
+        safe (pure numpy + IO)."""
+        name, rec, sds, sharding, np_dtype = job
+        target, = RestorePlan.leaf_ranges(tuple(sds.shape), sharding)
         if self.device_decode and any(s.get("codec") in codec_mod.STAGED
                                       for s in rec["shards"]):
             return self.fetch_staged(step_dir, name, rec, target)
@@ -232,10 +255,14 @@ class RestoreSession:
         if missing:
             raise MissingShardError(f"restore plan leaves {missing} "
                                     f"elements uncovered", leaf=name)
+        # a saved shard is read and decoded WHOLE even where the target
+        # needs only a slice of it (as the reference's host decode): its
+        # chunk stream and plane transform run over the shard, and the
+        # bytes read count the whole shard
         return StagedLeaf([
             (rng, self.read_shard(step_dir, s, staged=s.get("codec")
                                   in codec_mod.STAGED))
-            for rng, s in picks])
+            for rng, s in picks], target)
 
     def prefetch(self, plan: RestorePlan) -> list:
         """Phase 1 (blocking): fan the per-leaf host fetches out across
@@ -261,11 +288,22 @@ class RestoreSession:
     def leaf_to_device(self, step_dir, job, prefetched):
         """Phase 2 (calling thread): allocate the leaf on the device and
         copy the prefetched host array into it, or finish a ``StagedLeaf``'s
-        decode there."""
-        name, rec, sds, np_dtype = job
+        decode there. On a mesh the result is this rank's local shard
+        wrapped as a ``DTensor`` with the target placements."""
+        name, rec, sds, sharding, np_dtype = job
         if isinstance(prefetched, StagedLeaf):
-            return self._decode_to_device(prefetched, sds)
-        return self._upload(prefetched, sds.dtype, tuple(sds.shape))
+            local = self._decode_to_device(prefetched, sds)
+        else:
+            local = self._upload(prefetched, sds.dtype, prefetched.shape)
+        if sharding is None:
+            return local
+        from torch.distributed.tensor import DTensor
+        shape = tuple(sds.shape)
+        stride = tuple(int(math.prod(shape[i + 1:]))
+                       for i in range(len(shape)))
+        return DTensor.from_local(local, sharding.mesh, sharding.placements,
+                                  run_check=False, shape=shape,
+                                  stride=stride)
 
     def _upload(self, host, dtype, shape):
         """A host array copied into a new device tensor of `dtype`. bf16
@@ -293,12 +331,12 @@ class RestoreSession:
         step there (K4 over a byteplane stream, its ragged tail passed
         through; K6 over int8 q and scales), cast it to the leaf's dtype
         (``int8_codec.numpy_cast``, the host assemble's cast) and place it
-        in its slice of the leaf."""
+        in its slice of the target range."""
         import torch
 
         from ..kernels.ckpt_codec import byteplane, int8_codec
-        dtype, shape = sds.dtype, tuple(sds.shape)
-        target = ShardRange((0,) * len(shape), shape)
+        dtype, target = sds.dtype, staged.target
+        shape = target.shape
 
         def piece_to_device(rng, piece):
             rdt = getattr(torch, codec_mod.dtype_name(piece.dtype))
@@ -325,7 +363,8 @@ class RestoreSession:
                 out.copy_(t.reshape(()))
                 continue
             ov = overlap(rng, target)
-            out[tuple(slice(a, b) for a, b in zip(ov.start, ov.stop))] = \
+            out[tuple(slice(a - s, b - s) for a, b, s
+                      in zip(ov.start, ov.stop, target.start))] = \
                 t[tuple(slice(a - s, b - s)
                         for a, b, s in zip(ov.start, ov.stop, rng.start))]
         return out
@@ -392,6 +431,7 @@ class RestoreSession:
                         op="shard_read")
                 else:
                     raw = tier.read_file(rel)
+                self._count_read(len(raw))
                 rng, arr = unpack_shard(raw, staged)
                 if fname != srec["file"]:
                     warn("CKPT_W_REPLICA", "primary shard unavailable; "
@@ -455,6 +495,7 @@ class RestoreSession:
         else:
             payload = self.chunks.read_payload(srec["chunks"],
                                                payload_bytes, crc32=crc32)
+        self._count_read(len(payload))
         rng = ShardRange(tuple(srec["start"]), tuple(srec["stop"]))
         if chunk_raw_lens is not None \
                 and srec["codec"] in codec_mod.CHUNK_ENCODED:

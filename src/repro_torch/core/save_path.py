@@ -72,12 +72,18 @@ def pack_shard(leaf: str, rng: ShardRange, arr, codec: str):
 class SavePlan:
     """Pure planning for one write attempt: which rank writes which shard
     (round-robin over survivors), where buddy replicas go (the next alive
-    rank), and the full-mode manifest shard records. No IO."""
+    rank), and the full-mode manifest shard records. No IO.
+
+    Item ``i`` is the i-th entry of the whole state's item list (every
+    process of a sharded save lists the same items), so its shard file is
+    ``shard-{i:05d}.bin`` whichever process writes it; an item whose array
+    is None belongs to another process and is planned for no writer here,
+    its record arriving from that process."""
 
     def __init__(self, per_rank: dict, manifest_shards: dict,
                  shard_order: dict):
         self.per_rank = per_rank            # rank → [(i, name, rng, arr, fname, is_replica)]
-        self.manifest_shards = manifest_shards  # full mode: leaf → [records]
+        self.manifest_shards = manifest_shards  # full mode: item index → record
         self.shard_order = shard_order      # leaf → [item indices]
 
     @classmethod
@@ -87,10 +93,12 @@ class SavePlan:
         shards: dict = {}
         order: dict = {}
         for i, (name, rng, arr) in enumerate(items):
+            order.setdefault(name, []).append(i)
+            if arr is None:
+                continue
             r = alive[i % len(alive)]
             fname = f"{UPPER_DIR}/{leaf_to_fname(name)}/shard-{i:05d}.bin"
             per_rank[r].append((i, name, rng, arr, fname, False))
-            order.setdefault(name, []).append(i)
             if incremental:
                 # chunk objects carry their own replica copies
                 continue
@@ -100,28 +108,26 @@ class SavePlan:
                 rf = fname + REPLICA_SUFFIX
                 per_rank[buddy].append((i, name, rng, arr, rf, True))
                 replica_files.append(rf)
-            shards.setdefault(name, []).append({
+            shards[i] = {
                 "file": fname, "replicas": replica_files,
                 "start": list(rng.start), "stop": list(rng.stop),
                 "dtype": codec_mod.dtype_name(arr),
                 "codec": leaf_codec(name),
-            })
+            }
         return cls(per_rank, shards, order)
 
     def manifest_leaves(self, leaf_specs, shard_records: dict | None) -> dict:
         """Manifest ``leaves`` table. ``leaf_specs``: [(name, shape, dtype)]
-        for every leaf of the state. ``shard_records`` (incremental mode):
-        item index → chunked record; None selects the full-mode records."""
-        if shard_records is not None:
-            return {
-                name: {"shape": list(shape), "dtype": dtype,
-                       "shards": [shard_records[i]
-                                  for i in self.shard_order.get(name, [])]}
-                for name, shape, dtype in leaf_specs
-            }
+        for every leaf of the state. ``shard_records``: item index →
+        record (the chunked records of incremental mode, or every
+        process's records of a sharded save); None selects this plan's
+        full-mode records."""
+        records = self.manifest_shards if shard_records is None \
+            else shard_records
         return {
             name: {"shape": list(shape), "dtype": dtype,
-                   "shards": self.manifest_shards.get(name, [])}
+                   "shards": [records[i]
+                              for i in self.shard_order.get(name, [])]}
             for name, shape, dtype in leaf_specs
         }
 
@@ -161,10 +167,13 @@ class PayloadTicket:
     For chunk-encoded codecs ``raw_lens`` carries the pre-entropy
     (transformed-stream) chunk lengths; ``lens``/``crc``/``new_bytes``
     then describe the ENCODED chunks that were physically stored, and
-    ``payload_bytes`` stays the transformed length."""
+    ``payload_bytes`` stays the transformed length. ``new_objects`` maps
+    each digest this payload wrote to its bytes (None on the serial
+    engine, whose ``put_payload`` counts only the total)."""
 
     __slots__ = ("digests", "lens", "new_bytes", "crc", "remaining",
-                 "n_chunks", "payload_bytes", "submitted", "raw_lens")
+                 "n_chunks", "payload_bytes", "submitted", "raw_lens",
+                 "new_objects")
 
     def __init__(self, n_chunks: int, payload_bytes: int,
                  submitted: bool = True):
@@ -177,6 +186,7 @@ class PayloadTicket:
         self.payload_bytes = payload_bytes
         self.submitted = submitted
         self.raw_lens: list | None = None
+        self.new_objects: dict | None = {}
 
     @property
     def done(self) -> bool:
@@ -247,6 +257,7 @@ class SaveSession:
             ticket.digests = digests
             ticket.lens = lens
             ticket.new_bytes = new
+            ticket.new_objects = None
             ticket.crc = zlib.crc32(payload) & 0xFFFFFFFF
             return ticket
         if self._chunker_obj is not None and \
@@ -417,6 +428,7 @@ class SaveSession:
             ticket.digests = digests
             ticket.lens = lens
             ticket.new_bytes = new
+            ticket.new_objects = None
             ticket.crc = zlib.crc32(enc_stream) & 0xFFFFFFFF
             ticket.raw_lens = raw_lens
             return ticket
@@ -482,6 +494,8 @@ class SaveSession:
         ticket.digests.append(d)
         ticket.lens.append(len(chunk))
         ticket.new_bytes += new
+        if new:
+            ticket.new_objects[d] = new
         ticket.crc = zlib.crc32(chunk, ticket.crc)
         ticket.remaining -= 1
         try:
@@ -554,6 +568,9 @@ class WriteOutcome:
         self.stats = {"files": 0, "payload_bytes": 0, "written_bytes": 0,
                       "new_object_bytes": 0, "chunks": 0}
         self.shard_records: dict = {}       # item index → chunked record
+        # digest → bytes of every object this attempt wrote (None once a
+        # serial-engine payload, which counts only totals, joined)
+        self.new_objects: dict | None = {}
         self.dead: set = set()
 
 
@@ -705,6 +722,11 @@ def write_shards(*, items, alive_hint: int, coordinator, chunks: ChunkStore,
                 nbytes += new_bytes
                 with stats_lock:
                     out.shard_records[i] = rec
+                    if out.new_objects is not None:
+                        if ticket.new_objects is None:
+                            out.new_objects = None
+                        else:
+                            out.new_objects.update(ticket.new_objects)
                     out.stats["files"] += 1
                     out.stats["payload_bytes"] += rec["payload_bytes"]
                     out.stats["written_bytes"] += new_bytes
@@ -736,6 +758,7 @@ def write_shards(*, items, alive_hint: int, coordinator, chunks: ChunkStore,
         for k in out.stats:
             out.stats[k] = 0
         out.shard_records.clear()
+        out.new_objects = {}
         out.plan = SavePlan.build(items, alive, incremental=incremental,
                                   replicas=replicas, leaf_codec=leaf_codec)
         coordinator.begin_round(step, participants=alive,
@@ -768,13 +791,28 @@ def write_shards(*, items, alive_hint: int, coordinator, chunks: ChunkStore,
 # ---------------------------------------------------------------------------
 
 def iter_snapshot_shards(state):
-    """One (name, range, device tensor) entry per leaf of `state` — THE
-    enumeration both the snapshot copy and the byte-budget estimate
-    consume: admission must account exactly the bytes the snapshot will
-    pin, so there is one rule, not two that can drift. A single-device
-    tensor is one shard covering the whole leaf."""
+    """One (name, range, device tensor) entry per unique logical shard
+    range of `state` — THE enumeration both the snapshot copy and the
+    byte-budget estimate consume: admission must account exactly the bytes
+    the snapshot will pin, so there is one rule, not two that can drift.
+
+    A single-device tensor is one shard covering the whole leaf. A
+    ``DTensor`` yields every distinct range of its placements in the order
+    JAX's ``addressable_shards`` meets them on the same mesh (rank order;
+    a replicated range once, owned by the lowest rank holding it), from
+    the mesh and the placements alone, so every rank lists the same items
+    with no communication. The entry carries this rank's local tensor where
+    this rank owns the range, and None where another rank does."""
     from .split_state import leaf_paths
     for name, leaf in leaf_paths(state):
+        if hasattr(leaf, "placements"):
+            from ..sharding.partition import sharding_of
+            sh = sharding_of(leaf)
+            me = sh.flat_rank()
+            local = leaf.to_local()
+            for rng, owner in sh.unique_ranges(tuple(leaf.shape)):
+                yield name, rng, local if owner == me else None
+            continue
         shape = tuple(getattr(leaf, "shape", np.shape(leaf)))
         yield name, ShardRange((0,) * len(shape), shape), leaf
 
@@ -796,12 +834,14 @@ def estimate_snapshot_bytes(state, quantize=None) -> int:
     gates on this metadata-only walk of ``iter_snapshot_shards`` (exact
     for the snapshot: same entries, same ``device_quantized`` rule, same
     nbytes: q and scales for a leaf quantized on the device)."""
-    # a tensor's own nbytes (np.asarray refuses bf16 tensors)
+    # a tensor's own nbytes (np.asarray refuses bf16 tensors); another
+    # rank's range pins nothing here
     return sum(codec_mod.quantized_nbytes(data.numel())
                if device_quantized(name, data, quantize)
                else int(data.nbytes) if hasattr(data, "nbytes")
                else np.asarray(data).nbytes
-               for name, _, data in iter_snapshot_shards(state))
+               for name, _, data in iter_snapshot_shards(state)
+               if data is not None)
 
 
 def to_host(leaf) -> np.ndarray:
@@ -841,11 +881,14 @@ def snapshot_items(state, pool, quantize=None) -> list:
     pipelined engine fans the per-shard host copies out over `pool` (the
     save-time idle restore pool); the serial engine keeps the original
     inline copies. Leaves that `quantize` names (``device_quantized``)
-    are quantized on the device first and arrive as ``codec.Quantized``."""
+    are quantized on the device first and arrive as ``codec.Quantized``.
+    A range another rank owns stays None."""
     pending = list(iter_snapshot_shards(state))
 
     def host(entry):
         name, _, data = entry
+        if data is None:
+            return None
         if device_quantized(name, data, quantize):
             return to_host_quantized(data)
         return to_host(data)

@@ -7,8 +7,12 @@ restart). Here:
 
   upper half  = TrainState: {params, opt, step, rng} — a nested dict of
                 tensors. This is the ONLY thing checkpoints persist.
-  lower half  = device, streams, kernel libraries — derived from (config,
-                current machine) at restore time.
+  lower half  = mesh, shardings, device, streams, kernel libraries —
+                derived from (config, current topology) at restore time.
+
+Because the upper half stores *logical* tensors (global shape + dtype +
+index ranges per shard), a checkpoint taken on one mesh restores onto any
+other — the M×N portability property, strengthened to elasticity.
 
 Leaf names are the JAX package's: ``/``-joined dict keys, walked in SORTED
 key order (what ``jax.tree_util`` does with dicts), so a checkpoint written
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 from dataclasses import asdict, dataclass
 
 
@@ -99,6 +104,20 @@ def abstract_train_state(model, optimizer):
     }
 
 
+def state_shardings(abstract_state, mesh, optimizer):
+    """``partition.NamedSharding`` of every state leaf on `mesh`: the
+    params by the reference's partition rules, the optimizer's state by
+    its ``state_sharding``, ``step`` and ``rng`` replicated."""
+    from ..sharding.partition import param_specs, replicated
+    ps = param_specs(abstract_state["params"], mesh)
+    return {
+        "params": ps,
+        "opt": optimizer.state_sharding(ps, abstract_state["params"], mesh),
+        "step": replicated(mesh),
+        "rng": replicated(mesh),
+    }
+
+
 # ---------------------------------------------------------------------------
 # lower half
 # ---------------------------------------------------------------------------
@@ -122,12 +141,17 @@ def config_digest(cfg) -> str:
     return hashlib.sha256(blob.encode()).hexdigest()[:16]
 
 
-def lower_half_descriptor(cfg, n_devices: int = 1) -> LowerHalfDescriptor:
+def lower_half_descriptor(mesh, cfg) -> LowerHalfDescriptor:
+    """The mesh's shape and axis names (a ``DeviceMesh`` or an
+    ``AbstractMesh``); ``mesh=None`` is one device, ``(1,)`` on
+    ``("data",)``."""
     import torch
+    shape = (1,) if mesh is None else tuple(mesh.shape)
     return LowerHalfDescriptor(
-        mesh_shape=(n_devices,),
-        mesh_axes=("data",),
-        n_devices=n_devices,
+        mesh_shape=shape,
+        mesh_axes=("data",) if mesh is None
+        else tuple(mesh.mesh_dim_names),
+        n_devices=math.prod(shape),
         runtime=f"torch-{torch.__version__}",
         config_digest=config_digest(cfg),
     )

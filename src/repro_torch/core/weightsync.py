@@ -391,7 +391,8 @@ class WeightSubscriber:
             if self.leaf_filter is not None and not self.leaf_filter(name):
                 continue
             sds = _LeafSpec(rec["shape"], rec["dtype"])
-            jobs.append((name, rec, sds, codec_mod._np_dtype(rec["dtype"])))
+            jobs.append((name, rec, sds, None,
+                         codec_mod._np_dtype(rec["dtype"])))
         plan = RestorePlan(jobs, step_dir)
         self.chunks.begin_io_window()
         fetched = self._restore_exec.map_ordered(

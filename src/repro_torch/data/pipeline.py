@@ -12,6 +12,10 @@ Philox stream keyed on (seed, step), so batch ``i`` is identical in both
 packages; ``next`` hands the batch back as tensors on the pipeline's
 device. An encoder config's batch is the JAX pipeline's frame features,
 cluster labels and mask, drawn from the same stream after the tokens.
+
+On a mesh every rank draws the whole global batch and keeps its own rows
+(``rows``, the batch dim's range of the rank's ``batch_spec`` shard), so
+the rows of all ranks together are the one-device batch.
 """
 from __future__ import annotations
 
@@ -42,16 +46,18 @@ class SyntheticPipeline:
     """Mixture-of-corpora synthetic LM batches: each "source" draws
     Zipf-ish tokens from its own band of the vocabulary, so mixture
     sampling and its checkpointed counters are observable in tests.
-    ``device`` (``None`` → CUDA) is where ``next`` places the batch."""
+    ``device`` (``None`` → CUDA) is where ``next`` places the batch;
+    ``rows`` (a ``(start, stop)`` pair, None for all) the rows it keeps."""
 
     def __init__(self, cfg, *, batch, seq_len, mixture=(0.6, 0.3, 0.1),
-                 device=None):
+                 device=None, rows=None):
         self.cfg = cfg
         self.batch = batch
         self.seq_len = seq_len
         self.mixture = np.asarray(mixture, np.float64)
         self.mixture /= self.mixture.sum()
         self.device = resolve_device(device)
+        self.rows = rows
 
     def init_state(self, seed=0):
         return DataState(seed=seed, step=0,
@@ -95,8 +101,12 @@ class SyntheticPipeline:
         return {"tokens": toks % V}, new_state
 
     def next(self, state: DataState):
-        """(``next_host``'s batch as tensors on the device, next state)."""
+        """(``next_host``'s batch — this rank's ``rows`` of it — as tensors
+        on the device, next state)."""
         import torch
         batch, new_state = self.next_host(state)
+        if self.rows is not None:
+            batch = {k: np.ascontiguousarray(v[slice(*self.rows)])
+                     for k, v in batch.items()}
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in batch.items()}, new_state

@@ -4,18 +4,27 @@
 Runs the REDUCED config by default (``--full-config`` for the published
 widths) through the paper's full production path: restore-on-start →
 train → periodic async checkpoints → preempt-safe exit. Runs on the CUDA
-card unless ``--device cpu``.
+card unless ``--device cpu``. Under torchrun (``WORLD_SIZE`` > 1) every
+process joins the process group (NCCL on the card, gloo with ``--device
+cpu``) and trains one rank of ``launch.mesh.make_host_mesh()``'s default
+mesh, ``(world, 1)`` on ("data", "model"):
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch \
+        gemma3-1b --steps 4 --ckpt-every 2 --device cpu --workdir /tmp/w
 """
 from __future__ import annotations
 
 import argparse
 import logging
 import os
+from dataclasses import replace
 
 from ..configs import ARCH_IDS, get_config, reduced
+from ..configs.presets import preset_overrides
 from ..core.codec import CODECS
 from ..train.loop import Trainer, TrainerConfig
 from ..train.steps import CUBLAS_WORKSPACE
+from .mesh import make_host_mesh
 
 
 def main(argv=None):
@@ -74,19 +83,19 @@ def main(argv=None):
     ap.add_argument("--full-config", action="store_true",
                     help="use the full-size config")
     ap.add_argument("--preset", action="store_true",
-                    help="apply the per-arch production parallelism preset "
-                         "(sharding: not ported, one device)")
+                    help="apply the per-arch production parallelism preset")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.preset:
-        ap.error("--preset applies sharding presets; the port runs on one "
-                 "device (sharding comes with a later slice, ROADMAP.md)")
 
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     cfg = get_config(args.arch)
+    if args.preset:
+        ov = preset_overrides(args.arch)
+        if ov:
+            cfg = replace(cfg, **ov)
     if not args.full_config:
         cfg = reduced(cfg)
     tcfg = TrainerConfig(
@@ -103,7 +112,11 @@ def main(argv=None):
         streaming_restore=args.streaming_restore,
         remote_dir=args.remote_dir, remote_bw=args.remote_bw,
         remote_latency_s=args.remote_latency)
-    trainer = Trainer(cfg, tcfg, device=args.device).init_or_restore()
+    mesh = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        mesh = make_host_mesh(device=args.device)
+    trainer = Trainer(cfg, tcfg, device=args.device,
+                      mesh=mesh).init_or_restore()
     try:
         report = trainer.fit(args.steps)
     finally:

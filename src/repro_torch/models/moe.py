@@ -25,9 +25,28 @@ product, so its gradient is an elementwise one.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 from .layers import _act, mlp_apply
+
+# the sharded step's token gather (``train.steps``): x → (the batch's rows
+# that form whole groups with x, a function taking x's rows back out)
+_GATHER = None
+
+
+@contextlib.contextmanager
+def token_gather(gather):
+    """Within the block ``moe_apply`` groups ``gather(x)``'s tokens and
+    returns its own rows of the result: a rank that holds fewer tokens
+    than one group of the global batch routes the group the one-device
+    step forms (capacity depends on the group's size)."""
+    global _GATHER
+    prev, _GATHER = _GATHER, gather
+    try:
+        yield
+    finally:
+        _GATHER = prev
 
 
 def _mean(x, dim=None):
@@ -110,6 +129,14 @@ def _dispatch_slots(e_flat, pos_flat, counts, k: int, C: int, zero_row):
 def moe_apply(params, x, cfg, *, group_size: int = 4096):
     """x: (B, S, D) → (y, aux) with aux = {load_balance_loss,
     router_z_loss, drop_fraction} (f32 scalars)."""
+    if _GATHER is not None:
+        full, take = _GATHER(x)
+        y, aux = _moe_groups(params, full, cfg, group_size)
+        return take(y), aux
+    return _moe_groups(params, x, cfg, group_size)
+
+
+def _moe_groups(params, x, cfg, group_size):
     import torch
     import torch.nn.functional as F
     m = cfg.moe

@@ -19,6 +19,13 @@ tensors it was given (the JAX step donates its state) and returns the same
 trees; the f32 temporaries of a leaf are freed before the next leaf, so a
 step holds at most about two f32 copies of the largest leaf beside the
 state.
+
+On a mesh the update runs on each rank's local shards (``layout``, a
+``sharding.partition.ShardLayout``): ``v_row`` and ``v_col`` take their
+parameter's sharding with the reduced dim dropped, and the three
+reductions that cross shards are summed over them — the row and column
+means of ``g² + eps`` over a sharded dim, the mean of ``v_row`` that
+normalises it, and the RMS of the update over the whole stacked leaf.
 """
 from __future__ import annotations
 
@@ -58,19 +65,20 @@ class Adafactor:
         return {"f": map_leaves(leaf, params),
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    def _leaf(self, p, g, s, lr):
+    def _leaf(self, p, g, s, lr, name=None, layout=None):
         import torch
         d = self.decay
         g = g.to(torch.float32, copy=True)     # the caller's grads stay
         if "v_row" in s:
             g2 = g.square().add_(self.eps)
-            row, col = g2.mean(-1), g2.mean(-2)
+            row = _mean(g2, -1, name, layout, -1)
+            col = _mean(g2, -2, name, layout, -2)
             del g2
             s["v_row"].mul_(d).add_(row.mul_(1 - d))
             s["v_col"].mul_(d).add_(col.mul_(1 - d))
             v_row, v_col = s["v_row"], s["v_col"]
-            r = v_row / torch.clamp(v_row.mean(-1, keepdim=True),
-                                    min=self.eps)
+            r = v_row / torch.clamp(_mean(v_row, -1, name, layout, -2,
+                                          keepdim=True), min=self.eps)
             denom = (torch.sqrt(r)[..., None]
                      * torch.sqrt(v_col)[..., None, :]).add_(1e-12)
             u = g.div_(denom)
@@ -79,16 +87,21 @@ class Adafactor:
             s["v"].mul_(d).add_(g.square().add_(self.eps).mul_(1 - d))
             u = g.div_(torch.sqrt(s["v"]).add_(1e-12))
         # update clipping: RMS over the whole (stacked) leaf <= threshold
-        rms = torch.linalg.vector_norm(u) / math.sqrt(u.numel())
+        if layout is None or not layout.axes(name):
+            rms = torch.linalg.vector_norm(u) / math.sqrt(u.numel())
+        else:
+            rms = torch.sqrt(layout.psum_(name, u.square().sum())) / \
+                math.sqrt(math.prod(layout.shapes[name]))
         u.div_(torch.clamp(rms / self.clip_threshold, min=1.0))
         if self.weight_decay and p.dim() >= 2:
             u.add_(p.to(torch.float32, copy=True).mul_(self.weight_decay))
         # p - lr·u, rounded once to the parameter's dtype
         p.copy_(u.mul_(lr).neg_().add_(p))
 
-    def update(self, grads, state, params, lr):
+    def update(self, grads, state, params, lr, layout=None):
         """Apply one step in place; returns (params, opt_state), the trees
-        that were passed in."""
+        that were passed in. With a `layout`, every tree holds this rank's
+        local shards."""
         import torch
         state["count"].add_(1)
         flat_g = dict(leaf_paths(grads))
@@ -98,5 +111,38 @@ class Adafactor:
             flat_s.setdefault(leaf, {})[key] = t
         with torch.no_grad():
             for name, p in leaf_paths(params):
-                self._leaf(p, flat_g[name], flat_s[name], lr)
+                self._leaf(p, flat_g[name], flat_s[name], lr, name, layout)
         return params, state
+
+    def state_sharding(self, param_specs, abstract_params, mesh):
+        """Factored stats inherit the param spec with the reduced dim
+        dropped."""
+        from ..sharding.partition import NamedSharding, replicated
+
+        def leaf(sharding, p):
+            parts = list(sharding.spec) + [None] * (p.dim()
+                                                    - len(sharding.spec))
+            if self._factored(p):
+                return {"v_row": NamedSharding(mesh, tuple(parts[:-1])),
+                        "v_col": NamedSharding(
+                            mesh, tuple(parts[:-2] + parts[-1:]))}
+            return {"v": NamedSharding(mesh, tuple(parts))}
+
+        def walk(specs, params):
+            return {k: walk(specs[k], v) if isinstance(v, dict)
+                    else leaf(specs[k], v) for k, v in params.items()}
+
+        return {"f": walk(param_specs, abstract_params),
+                "count": replicated(mesh)}
+
+
+def _mean(t, dim, name, layout, param_dim, keepdim=False):
+    """``t.mean(dim)``; over a dim that is sharded (parameter dim
+    `param_dim` of leaf `name` in `layout`), the local sum summed over
+    the shards and divided by the global length."""
+    axes = () if layout is None else layout.axes(name, [param_dim])
+    if not axes:
+        return t.mean(dim, keepdim=keepdim)
+    n = layout.shapes[name][param_dim]
+    return layout.psum_(name, t.sum(dim, keepdim=keepdim),
+                        [param_dim]).div_(n)

@@ -11,18 +11,29 @@ moments into the tensors it was given and returns the same trees. The JAX
 step donates its state (``donate_argnums``), so the caller owns no old
 state in either package; in place, the port holds one copy of the 10 GB
 state instead of two at the end of a step.
+
+On a mesh the update runs on each rank's local shards: ``layout``
+(``sharding.partition.ShardLayout``) names how every leaf is sharded, and
+the one reduction AdamW makes, the global norm of the clip, sums each
+leaf's local sum of squares over its shards before the leaves are added.
 """
 from __future__ import annotations
 
 from ..core.split_state import leaf_paths
 
 
-def global_norm(grads):
+def global_norm(grads, layout=None):
     """sqrt of the sum of squares of every leaf in f32, summed leaf by leaf
-    in flatten order (as the JAX package's Python ``sum``)."""
+    in flatten order (as the JAX package's Python ``sum``). With a
+    `layout`, `grads` are local shards and each leaf's sum is summed over
+    its shards first."""
     import torch
-    return torch.sqrt(sum(g.float().square().sum()
-                          for _, g in leaf_paths(grads)))
+
+    def sq(name, g):
+        s = g.float().square().sum()
+        return s if layout is None else layout.psum_(name, s)
+
+    return torch.sqrt(sum(sq(n, g) for n, g in leaf_paths(grads)))
 
 
 class AdamW:
@@ -45,11 +56,12 @@ class AdamW:
         return {"m": zeros(params), "v": zeros(params),
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    def update(self, grads, state, params, lr):
+    def update(self, grads, state, params, lr, layout=None):
         """Apply one step in place (see the module docstring); returns
-        (params, opt_state), the trees that were passed in."""
+        (params, opt_state), the trees that were passed in. With a
+        `layout`, every tree holds this rank's local shards."""
         import torch
-        grads = clip_by_global_norm(grads, self.clip_norm)
+        grads = clip_by_global_norm(grads, self.clip_norm, layout)
         state["count"].add_(1)
         c = state["count"].float()
         b1, b2 = self.b1, self.b2
@@ -71,14 +83,20 @@ class AdamW:
                 p.copy_((p.float() - lr * step).to(p.dtype))
         return params, state
 
+    def state_sharding(self, param_specs, abstract_params, mesh):
+        """The moments take their parameter's sharding."""
+        from ..sharding.partition import replicated
+        return {"m": param_specs, "v": param_specs,
+                "count": replicated(mesh)}
 
-def clip_by_global_norm(grads, max_norm):
+
+def clip_by_global_norm(grads, max_norm, layout=None):
     """Scale every leaf by ``min(1, max_norm / max(norm, 1e-9))`` in f32,
     rounded back to the leaf's dtype (new tensors)."""
     import torch
     if not max_norm:
         return grads
-    norm = global_norm(grads)
+    norm = global_norm(grads, layout)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
     def clip(tree):

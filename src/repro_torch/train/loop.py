@@ -5,9 +5,15 @@ coordinator-supervised writes.
 
 The Trainer owns the *lower half* (device, step function, pipeline
 objects) and treats the *upper half* (TrainState + DataState) as opaque
-checkpointable data — the split-process discipline as code structure. One
-device holds the whole state: the JAX trainer's mesh, shardings and
-``jax.jit`` fall away, and ``device`` (``None`` → CUDA) names the card.
+checkpointable data — the split-process discipline as code structure.
+``device`` (``None`` → CUDA) names the card. Without a ``mesh`` one device
+holds the whole state. With one (``launch.mesh``: one process per rank),
+every state leaf is a ``DTensor`` placed by the reference's partition
+rules (``core.split_state.state_shardings``), each rank keeps its rows of
+the batch, the step computes the one-device function
+(``train.steps._sharded_step``), and each rank saves the ranges it owns
+into the one manifest (``CheckpointManager(group=)``), so a checkpoint of
+one mesh restores onto any other.
 """
 from __future__ import annotations
 
@@ -22,12 +28,13 @@ from ..core.preempt import PreemptionGuard
 from ..core.save_path import to_host
 from ..core.split_state import (abstract_train_state, config_digest,
                                 init_train_state, leaf_paths,
-                                lower_half_descriptor)
+                                lower_half_descriptor, state_shardings)
 from ..core.storage import TieredStore, default_store
 from ..data.pipeline import DataState, SyntheticPipeline
 from ..devices import resolve_device
 from ..models import Model
 from ..optim import make_optimizer
+from ..sharding.partition import batch_spec, distribute_tree
 from .steps import make_train_step
 
 log = logging.getLogger("repro_torch.train")
@@ -65,19 +72,41 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, model_cfg, tcfg: TrainerConfig, *,
-                 store: TieredStore | None = None, device=None):
+                 store: TieredStore | None = None, device=None, mesh=None):
         self.cfg = model_cfg
         self.tcfg = tcfg
         # ---- lower half bring-up (the "trivial MPI application") ----
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.model = Model(model_cfg)
         self.optimizer = make_optimizer(model_cfg)
+        self._abstract = abstract_train_state(self.model, self.optimizer)
+        self._shardings = None
+        rows, batch_axes, group = None, (), None
+        if mesh is not None:
+            import torch
+            import torch.distributed as dist
+            self._shardings = state_shardings(self._abstract, mesh,
+                                              self.optimizer)
+            shape = (tcfg.batch, tcfg.seq_len)
+            bs = batch_spec({"rows": torch.empty(shape, device="meta")},
+                            mesh, model_cfg)["rows"]
+            rng = bs.local_range(shape)
+            rows, batch_axes = (rng.start[0], rng.stop[0]), \
+                bs.dim_axes(2)[0]
+            if dist.get_world_size() > 1:
+                # the checkpoint's control messages ride their own gloo
+                # group (made here, in the same order on every rank), so an
+                # async save's persist thread never issues collectives on
+                # the group the step uses
+                group = dist.new_group(backend="gloo")
         self.pipeline = SyntheticPipeline(model_cfg, batch=tcfg.batch,
                                           seq_len=tcfg.seq_len,
-                                          device=self.device)
-        self._abstract = abstract_train_state(self.model, self.optimizer)
+                                          device=self.device, rows=rows)
         self.step_fn = make_train_step(self.model, self.optimizer,
-                                       grad_accum=tcfg.grad_accum)
+                                       grad_accum=tcfg.grad_accum,
+                                       shardings=self._shardings,
+                                       batch_axes=batch_axes)
         store = store or default_store(tcfg.workdir,
                                        burst_buffer=tcfg.burst_buffer,
                                        lustre_bw=tcfg.lustre_bw,
@@ -97,7 +126,7 @@ class Trainer:
             streaming_restore=tcfg.streaming_restore)
         self.manager = CheckpointManager(
             store, policy=CheckpointPolicy.from_env(base=policy),
-            device=self.device)
+            device=self.device, group=group)
         # ---- upper half ----
         self.state = None
         self.data_state: DataState | None = None
@@ -113,7 +142,8 @@ class Trainer:
             "data_state": self.data_state.to_json(),
             "arch": self.cfg.arch_id,
             "config_digest": config_digest(self.cfg),
-            "lower_half": lower_half_descriptor(self.cfg).to_json(),
+            "lower_half": lower_half_descriptor(self.mesh,
+                                                self.cfg).to_json(),
             "py_step": self.py_step,
         }
 
@@ -123,6 +153,8 @@ class Trainer:
             self.state = init_train_state(self.model, self.optimizer,
                                           seed=self.tcfg.seed,
                                           device=self.device)
+            if self._shardings is not None:
+                self.state = distribute_tree(self.state, self._shardings)
             self.data_state = self.pipeline.init_state(self.tcfg.seed)
             self.py_step = 0
             log.info("initialized fresh state (seed=%d)", self.tcfg.seed)
@@ -131,7 +163,7 @@ class Trainer:
             # first-use order; fit() begins step 0 once the frontier is
             # resident and drains the tail behind the completion gate
             self._restore_stream, extra = self.manager.restore_streaming(
-                self._abstract, step=latest)
+                self._abstract, self._shardings, step=latest)
             self.data_state = DataState.from_json(extra["data_state"])
             self.py_step = int(extra.get("py_step", latest))
             self.restored_from = latest
@@ -139,13 +171,15 @@ class Trainer:
                      "frontier %d)", latest, len(self._restore_stream.names),
                      len(self._restore_stream.frontier_names))
         else:
-            self.state, extra = self.manager.restore(self._abstract,
-                                                     step=latest)
+            self.state, extra = self.manager.restore(
+                self._abstract, self._shardings, step=latest)
             self.data_state = DataState.from_json(extra["data_state"])
             self.py_step = int(extra.get("py_step", latest))
             self.restored_from = latest
-            log.info("restored step %d (upper half) onto %s (lower half "
-                     "rebuilt)", latest, self.device)
+            log.info("restored step %d (upper half) onto %s%s (lower half "
+                     "rebuilt)", latest, self.device,
+                     "" if self.mesh is None
+                     else f", mesh {tuple(self.mesh.shape)}")
         return self
 
     def save(self, *, blocking: bool = True):
@@ -255,11 +289,15 @@ class Trainer:
         """Bit-exactness probe: order-stable sha256 over the ``/``-joined
         leaf names and raw bytes of all params (bf16 as its 2-byte
         patterns, so the JAX package's digest of the same values is the
-        same)."""
+        same); a ``DTensor`` leaf is gathered to its full tensor first, so
+        the digest is the same on every mesh."""
         if self._restore_stream is not None:
             self._finish_streaming_restore()
         h = hashlib.sha256()
         for name, leaf in leaf_paths(self.state["params"]):
+            if hasattr(leaf, "full_tensor"):
+                leaf = leaf.full_tensor()
             h.update(name.encode())
             h.update(to_host(leaf).tobytes())
         return h.hexdigest()
+

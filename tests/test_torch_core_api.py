@@ -1,6 +1,6 @@
 """The port's public surface: ``repro_torch.core`` exports the JAX
-package's ``repro.core.__all__`` except ``state_shardings`` (it waits for
-sharding), each name importable; and the reliability plane's modules
+package's ``repro.core.__all__`` (``state_shardings`` too, since the
+sharding slice), each name importable; and the reliability plane's modules
 import neither JAX nor the JAX package."""
 import os
 import subprocess
@@ -14,8 +14,7 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 
 
 def test_all_is_the_references_minus_state_shardings():
-    assert sorted(tcore.__all__) == sorted(
-        set(jcore.__all__) - {"state_shardings"})
+    assert sorted(tcore.__all__) == sorted(jcore.__all__)
     for name in tcore.__all__:
         assert getattr(tcore, name) is not None, name
 

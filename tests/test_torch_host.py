@@ -169,6 +169,20 @@ def test_gemma3_config_identical():
 def test_lower_half_descriptor_names_torch():
     from repro_torch.configs import gemma3_1b as tg
     from repro_torch.core.split_state import lower_half_descriptor
-    d = lower_half_descriptor(tg.CONFIG)
+    d = lower_half_descriptor(None, tg.CONFIG)
     assert d.runtime == f"torch-{torch.__version__}"
     assert d.n_devices == 1 and len(d.config_digest) == 16
+
+
+def test_lower_half_descriptor_records_the_mesh():
+    from repro_torch.configs import gemma3_1b as tg
+    from repro_torch.core.split_state import lower_half_descriptor
+    from repro_torch.launch.mesh import AbstractMesh
+    d = lower_half_descriptor(AbstractMesh((2, 16, 16),
+                                           ("pod", "data", "model")),
+                              tg.CONFIG)
+    assert d.mesh_shape == (2, 16, 16)
+    assert d.mesh_axes == ("pod", "data", "model")
+    assert d.n_devices == 512
+    assert d.config_digest == lower_half_descriptor(None,
+                                                    tg.CONFIG).config_digest
