@@ -20,6 +20,11 @@
                                          #   under build/)
     python3 chip_smoke.py --families-only  # build, parity, the families
                                          #   phase alone (15 GB of disk)
+    python3 chip_smoke.py --sharding-only  # build, parity, the sharding
+                                         #   phase alone
+    python3 chip_smoke.py --parallel-only  # build, K7/K8 parity, the zoo
+                                         #   phase, then the parallel
+                                         #   phase (30 GB of disk)
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
@@ -39,27 +44,31 @@
    launcher's block_q and at 64 and 128), two launches bit-equal; the
    reduced gemma3-1b model on the card (kernels) against the same model
    on the CPU (plain versions) in f32.
-3. The checkpoint path: the full gemma3-1b training state (bf16 params,
-   f32 AdamW moments; 321 leaves, ~10.0 GB) on the card, saved by
+3. The checkpoint path: the gemma3-1b training state at full width,
+   ``MAIN_LAYERS`` (6) of 26 layers (bf16 params, f32 AdamW moments;
+   ~4.6 GB, ~10.0 GB at full depth) on the card, saved by
    ``CheckpointManager`` as an incremental CDC round (params through the
    fused K2+K1+K3 dispatch, moments through the segmented K1 scan), ~10% of
    the leaves changed, saved again asynchronously, restored onto the card
    and compared bit for bit. The launch counts of K1-K3 must be > 0, and
-   two leaves re-encoded by the host oracle must give the same chunk
-   digests.
+   one leaf of each route (``params/stage_0/b0/mlp/wg`` and its f32
+   moment ``opt/m/...``) re-encoded by the host oracle must give the same
+   chunk digests.
 4. The serving path: ``repro_torch.launch.serve.run`` serves full-width
    gemma3-1b in bf16 (8 requests, 2048-token prompts, 64 new tokens)
    uninterrupted, then again preempted at token 32 into a fresh workdir,
    then resumed from that checkpoint; the resumed tokens must equal the
    uninterrupted run's, and the launch counts of K7 and K8 must be > 0.
 5. The training path: ``repro_torch.train.loop.Trainer`` trains
-   full-width gemma3-1b (bf16 params, f32 AdamW; synthetic pipeline seed
-   0, batch 4, sequence 1024 > window 512); each step runs under
-   deterministic algorithms, as in the launcher. Run A takes four steps uninterrupted; run B, in a fresh
-   workdir with the checkpoint round's policy and ``ckpt_every=2``, is
+   full-width gemma3-1b, ``TRAIN_LAYERS`` (6) of 26 layers (bf16 params,
+   f32 AdamW; synthetic pipeline seed 0, batch 4, sequence 1024 > window
+   512); each step runs under deterministic algorithms, as in the
+   launcher. Run A takes four steps uninterrupted; run B, in a fresh
+   workdir with the checkpoint round's policy and ``ckpt_every=4``, is
    preempted after step 3 (``PreemptionGuard.request()``: blocking save);
    a new Trainer restores step 3 — K4 decoding every params leaf on the
-   card — and runs step 4, whose ``params_digest`` must equal run A's.
+   card — and runs step 4 (an overlapped save), whose ``params_digest``
+   must equal run A's.
    The trained state is then saved with ``params_codec="int8"`` through
    the K5 route and through the host oracle (``device_precondition=
    False``): manifests and CAS objects must be identical; the params
@@ -68,7 +77,7 @@
 6. The reliability plane: a ``WeightPublisher`` on a ``CheckpointManager``
    (the checkpoint round's policy, retain 1) over a fast/slow store
    wrapped in a seeded ``FaultPlane`` publishes full-width gemma3-1b
-   params (bf16, seed 99) twice. Round 0 runs with the fast tier full
+   params (``RELIABILITY_LAYERS`` (6) of 26 layers, bf16, seed 99) twice. Round 0 runs with the fast tier full
    (persistent ENOSPC on its object writes) and latency on the slow tier,
    and must commit degraded; round 1 changes every 10th leaf under a
    transient EIO and a silent bit-rot on two named fast-tier object
@@ -80,7 +89,7 @@
    the slow tier, the inspector must then exit 0, and round 1 restored
    onto the card (K4) must equal the published params bit for bit.
    ``serve.run(..., weight_sync=<fast root>)`` with the serving phase's
-   traffic must flip to round 1, serve params bit-equal to it and give
+   traffic, at the same depth, must flip to round 1, serve params bit-equal to it and give
    the tokens of a direct loop (prefill with the initial params, decode
    with round 1's); a second subscriber's delta sync from round 0 to
    round 1 may pull no more than the changed leaves' new chunks plus 1
@@ -118,13 +127,13 @@
    MQA window of 2,048 at B 8, S 4,096) within ``attn_err``'s bound, K7 at
    their widths (``FAMILY_RMS``: 1,536, mamba2's gated norm at 3,072,
    4,096), and the reduced configs on the card against the CPU. Then
-   ``serve.run`` serves mamba2-780m at full width and full depth (48
-   layers; 8 requests of 2,048-token prompts, 64 new tokens) and
-   recurrentgemma-9b at full width, 6 of 38 layers (4,096-token prompts,
+   ``serve.run`` serves mamba2-780m at full width, 24 of 48 layers (8
+   requests of 2,048-token prompts, 64 new tokens) and
+   recurrentgemma-9b at full width, 3 of 38 layers (4,096-token prompts,
    past the window), each uninterrupted, preempted at token 32 and
    resumed: the resumed tokens must equal the uninterrupted run's. Then
-   ``preempt_resume`` trains mamba2-780m (12 of 48 layers, SSD chunks of
-   256) and hubert-xlarge (12 of 48 layers, encoder batches) at full
+   ``preempt_resume`` trains mamba2-780m (6 of 48 layers, SSD chunks of
+   256) and hubert-xlarge (6 of 48 layers, encoder batches) at full
    width with AdamW, batch 4 × 1024: finite losses, and the resumed run's
    ``params_digest`` equal to run A's. Launches are read per segment: K7
    (and K8 where there is attention) in the serves and steps, K1-K3 in
@@ -134,7 +143,21 @@
    restore numbers of each serve and the step, tokens/s, peak and
    ``restore_to_first_step_s`` of each training run. Its checkpoints go
    to ``build/chip_smoke_families`` (removed when it ends).
-9. Prints one JSON line of per-kernel numbers (CUDA-event times at each
+9. The sharding phase (``sharding``), after the families: full-width
+   gemma3-1b moved card → four CPU ranks → card, bit for bit.
+10. The parallel phase (``parallel``), after the zoo, on its checkpoint:
+   K8 with ``q_offset`` at llama4-scout's training shape and gemma2-9b's
+   window of 4,096 at S 8,192, each split four ways over the sequence,
+   within ``attn_err``'s bound (the no-offset control must fail it); four
+   rank processes on the one card (gloo on CUDA tensors) check the
+   collectives, restore the zoo's step 4 onto a (2,2) mesh through
+   ``Trainer(mesh=)`` (K4 decodes each rank's shards) and take step 5
+   with the layout step: loss and grad_norm within 1e-3 of the zoo's run
+   A, each rank's peak device bytes below the full bf16 parameter tree's,
+   K4, K7 and K8 launched in every rank; then ``moe_apply_shard_map``
+   over four ranks against ``moe_apply``'s routed experts on one. One
+   ``{"parallel": ...}`` line.
+11. Prints one JSON line of per-kernel numbers (CUDA-event times at each
    path's largest shapes, bounds from the bytes or operations each kernel
    needs, the plain version's and a library call's time; K7 also at every
    shape of ``K7_SHAPES`` with the L2 cold, each route forced; K8 also at the
@@ -142,7 +165,9 @@
    block_q and its ptxas registers and spills; K6 beside the one PyTorch
    call that computes it, ``torch.mul(q, scales[:, None], out=bf16)``,
    bit-equal at both output dtypes), one JSON line of end-to-end numbers,
-   and last the ``{"ok": true, "device": ...}`` line. Any failure exits
+   one ``{"phase_s": ...}`` line (each phase's wall seconds, also printed
+   as the phase ends, and the total), and last the
+   ``{"ok": true, "device": ...}`` line. Any failure exits
    non-zero.
 
 K4-K6 join the parity phase: K4 byte for byte on the same inputs and
@@ -178,6 +203,29 @@ F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 MIN_FREE_BYTES = 25e9
 MiB = 1 << 20
+# gemma3-1b's layers in the checkpoint round and the reliability phase, of
+# 26: one period of its five-local, one-global attention pattern (the full
+# depth would take the script past its time limit)
+MAIN_LAYERS = 6
+RELIABILITY_LAYERS = 6
+PHASE_S: dict = {}             # wall seconds of each phase of this run
+T_START = time.monotonic()
+
+
+class phase:
+    """``with phase(name):`` records the block's wall seconds in
+    ``PHASE_S`` and prints them as the phase ends (a run cut by its time
+    limit then shows how far it got)."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.monotonic()
+
+    def __exit__(self, *exc):
+        PHASE_S[self.name] = time.monotonic() - self.t0
+        say(f"phase {self.name}: {PHASE_S[self.name]:.3f} s")
 
 
 def fail(msg: str):
@@ -477,6 +525,13 @@ ATTN_EDGES = [
       for w in (63, 64, 65, 128, 511, 513)],
     (4, 1024, 1024, 4, 1, 256, True, 0, 0.0),
     (4, 1024, 1024, 4, 1, 256, True, 512, 0.0),
+    # q_offset (a 10th entry): one rank's rows of a longer sequence, at an
+    # offset of 0, on a 64-key tile edge and beside it
+    *[(1, 256, 1024, 4, 2, 128, True, 0, 0.0, o) for o in (0, 512, 511,
+                                                           513)],
+    *[(1, 200, 1024, 4, 1, 256, True, 128, 0.0, o) for o in (448, 449)],
+    (1, 130, 700, 4, 1, 64, False, 65, 0.0, 300),
+    (2, 256, 1024, 4, 2, 128, True, 0, 50.0, 768),
 ]
 # two launches at this shape must be bit-equal (the training resume is
 # bit-exact only if K8 does not depend on scheduling)
@@ -604,11 +659,12 @@ def model_kernel_parity(dev):
                                            err)
         cases = [(c, g) for c in ATTN_CASES] + \
             [(c, g_edges) for c in ATTN_EDGES]
-        for (B, Sq, Sk, H, K, D, causal, window, cap), gen in cases:
+        for (B, Sq, Sk, H, K, D, causal, window, cap, *off), gen in cases:
             q = randn(B, Sq, H, D, dtype=dtype, gen=gen)
             k = randn(B, Sk, K, D, dtype=dtype, gen=gen)
             v = randn(B, Sk, K, D, dtype=dtype, gen=gen)
-            kw = dict(causal=causal, window=window, softcap=cap)
+            kw = dict(causal=causal, window=window, softcap=cap,
+                      q_offset=off[0] if off else 0)
             ref = fa.flash_attention_plain(q, k, v, **kw).float()
             # bf16: the launcher's choice of block_q and both forced
             for bq in ((0, 64, 128) if dtype == torch.bfloat16 else (0,)):
@@ -692,6 +748,8 @@ def _to(tree, dev):
 # ---------------------------------------------------------------------------
 
 def main_path(dev, card: str, profile: bool = False):
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import gemma3_1b
@@ -713,25 +771,27 @@ def main_path(dev, card: str, profile: bool = False):
     say(f"store: {store_dir} free={free}")
     if free < MIN_FREE_BYTES:
         fail(f"only {free} bytes free under {store_dir}; need "
-             f"{int(MIN_FREE_BYTES)} for two rounds of the 10 GB state")
+             f"{int(MIN_FREE_BYTES)} for two rounds of the state")
 
-    def policy(scan="auto", keepalive_s=60.0, **codec):
+    def policy(scan="auto", **codec):
         return CheckpointPolicy(
             mode="incremental",
             chunking=ChunkingPolicy(scheme="cdc", chunk_size=MiB,
                                     scan_backend=scan),
             pipeline=PipelinePolicy(io_threads=8),
-            durability=DurabilityPolicy(keepalive_s=keepalive_s),
+            durability=DurabilityPolicy(keepalive_s=60.0),
             codec=CodecPolicy(codec="raw", params_codec="byteplane-rle",
                               **codec))
 
     try:
         t0 = time.monotonic()
-        state = train_state(gemma3_1b.CONFIG, dev, seed=0)
+        cfg = dataclasses.replace(gemma3_1b.CONFIG, n_layers=MAIN_LAYERS)
+        state = train_state(cfg, dev, seed=0)
         torch.cuda.synchronize()
         leaves = leaf_paths(state)
         nbytes = sum(t.nbytes for _, t in leaves)
-        say(f"state: gemma3-1b full width/depth, {len(leaves)} leaves, "
+        say(f"state: gemma3-1b full width, {MAIN_LAYERS} of "
+            f"{gemma3_1b.CONFIG.n_layers} layers, {len(leaves)} leaves, "
             f"{nbytes} bytes, built in {time.monotonic() - t0:.3f} s")
         mgr = CheckpointManager(TieredStore(Tier("fast", store_dir / "a")),
                                 policy(), device=dev)
@@ -782,19 +842,23 @@ def main_path(dev, card: str, profile: bool = False):
         say(f"restore step 2 onto {dev}: {restore_s:.3f} s, all "
             f"{len(leaves)} leaves bit-exact")
         del restored
-        # the host oracle re-encodes two leaves: same chunk digests
+        # the host oracle re-encodes one leaf of each device route (a bf16
+        # params leaf through K2+K1+K3, its f32 moment through the
+        # segmented K1 scan; each spans several scan segments): same chunk
+        # digests. params/embed's chunking is held against the plain
+        # versions in the kernel table.
         m2 = mgr.load_manifest(2)["leaves"]
-        sub_names = ("params/embed", "params/stage_0/b0/mlp/wg")
-        sub = {"params": {"embed": state["params"]["embed"],
-                          "stage_0": {"b0": {"mlp": {
-                              "wg": state["params"]["stage_0"]["b0"]["mlp"]
-                              ["wg"]}}}}}
-        # the numpy oracle encodes a 604 MB leaf in one go before its first
-        # chunk (and heartbeat): give its writer a longer keepalive
+        sub_names = ("params/stage_0/b0/mlp/wg", "opt/m/stage_0/b0/mlp/wg")
+
+        def wg(tree):
+            return {"stage_0": {"b0": {"mlp": {
+                "wg": tree["stage_0"]["b0"]["mlp"]["wg"]}}}}
+
+        sub = {"params": wg(state["params"]),
+               "opt": {"m": wg(state["opt"]["m"])}}
         oracle = CheckpointManager(
             TieredStore(Tier("fast", store_dir / "oracle")),
-            policy(scan="numpy", keepalive_s=600.0,
-                   device_precondition=False), device=dev)
+            policy(scan="numpy", device_precondition=False), device=dev)
         t0 = time.monotonic()
         oracle.save(sub, 2)
         oracle_s = time.monotonic() - t0
@@ -804,12 +868,14 @@ def main_path(dev, card: str, profile: bool = False):
                 fail(f"{name}: host-oracle chunk records differ from the "
                      "device path's")
         say(f"host oracle re-encode of {sub_names} ({oracle_s:.3f} s): "
-            f"identical chunk digests "
-            f"({len(m2['params/embed']['shards'][0]['chunks'])} chunks for "
-            f"params/embed)")
+            f"identical chunk digests ("
+            + ", ".join(f"{len(m2[n]['shards'][0]['chunks'])} chunks for {n}"
+                        for n in sub_names) + ")")
         oracle.close()
         mgr.close()
-        stats = {"save1_s": save1_s, "save2_s": save2_s,
+        stats = {"n_layers": MAIN_LAYERS,
+                 "of_layers": gemma3_1b.CONFIG.n_layers,
+                 "save1_s": save1_s, "save2_s": save2_s,
                  "restore_s": restore_s, "state_bytes": nbytes,
                  "save1_GBps": nbytes / save1_s / 1e9,
                  "save2_GBps": nbytes / save2_s / 1e9,
@@ -1320,6 +1386,8 @@ def model_kernel_table(dev, launches: dict) -> list:
 TRAIN = dict(batch=4, seq_len=1024, seed=0)
 TRAIN_STEPS = 4
 PREEMPT_AFTER = 3
+# gemma3-1b's layers in the training phase, of 26: as MAIN_LAYERS
+TRAIN_LAYERS = 6
 
 
 def _counters():
@@ -1378,14 +1446,19 @@ def _sum_counts(*counts) -> dict:
 
 
 def preempt_resume(cfg, root: Path, dev, profile: bool = False,
-                   on_saved=None, on_restored=None):
-    """Run A (``TRAIN_STEPS`` steps, no checkpoint), run B (``TRAIN_CKPT``,
-    preempted after step ``PREEMPT_AFTER``) and its resume to step
-    ``TRAIN_STEPS`` (K4 decodes every params leaf), each in a workdir under
+                   on_saved=None, on_restored=None, next_steps: int = 0):
+    """Run A (``TRAIN_STEPS`` steps, no checkpoint), run B (``TRAIN_CKPT``
+    saving every ``TRAIN_STEPS`` steps: its checkpoints are the blocking
+    one at the preemption after step ``PREEMPT_AFTER`` and the overlapped
+    one at step ``TRAIN_STEPS``) and its resume to step ``TRAIN_STEPS``
+    (K4 decodes every params leaf), each in a workdir under
     `root`. Fails unless run B's losses, the resumed losses and the resumed
     ``params_digest`` equal run A's. ``on_saved(trainer)`` sees run B at
     the preemption; ``on_restored(trainer)`` sees the restored state before
     the resumed step, its time left out of ``restore_to_first_step_s``.
+    With `next_steps`, run A takes that many more steps after its digest
+    (``stats["next"]``: their loss and grad_norm), the steps that follow
+    the resumed run's last checkpoint.
     Launches are read per segment, each counted from 0: ``steps`` (run A's
     steps), ``saves`` (run B's steps and saves), ``restore`` and
     ``resumed`` (the resumed step and its save). With `profile`, step 3 of
@@ -1435,6 +1508,10 @@ def preempt_resume(cfg, root: Path, dev, profile: bool = False,
     if profile:
         stats["device_step"] = prof.summary(prof_s)
     digest_a = tA.params_digest()
+    if next_steps:
+        tA.fit(TRAIN_STEPS + next_steps, stop_after=next_steps)
+        stats["next"] = [{k: h[k] for k in ("step", "loss", "grad_norm")}
+                         for h in tA.history[TRAIN_STEPS:]]
     tA.manager.close()
     del tA
     torch.cuda.empty_cache()
@@ -1446,7 +1523,7 @@ def preempt_resume(cfg, root: Path, dev, profile: bool = False,
         fail(f"{cfg.arch_id} training loss is not finite: {stats['loss']}")
     # ---- run B: preempted after step 3 --------------------------------
     tcfg_b = TrainerConfig(workdir=str(root / "b"), log_every=1, **TRAIN,
-                           **TRAIN_CKPT)
+                           **{**TRAIN_CKPT, "ckpt_every": TRAIN_STEPS})
     tB = Trainer(cfg, tcfg_b, store=store("b"), device=dev)
     rounds: list = []
     _record_rounds(tB.manager, rounds)
@@ -1533,8 +1610,11 @@ def preempt_resume(cfg, root: Path, dev, profile: bool = False,
 
 
 def training(dev, card: str, profile: bool = False):
-    """``preempt_resume`` of gemma3-1b with AdamW; then the int8 routes.
-    Returns (stats, launches over the phase)."""
+    """``preempt_resume`` of gemma3-1b (``TRAIN_LAYERS`` of 26 layers) with
+    AdamW; then the int8 routes. Returns (stats, launches over the
+    phase)."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import gemma3_1b
@@ -1545,7 +1625,7 @@ def training(dev, card: str, profile: bool = False):
     from repro_torch.core.split_state import leaf_paths
     from repro_torch.core.storage import Tier, TieredStore
 
-    cfg = gemma3_1b.CONFIG
+    cfg = dataclasses.replace(gemma3_1b.CONFIG, n_layers=TRAIN_LAYERS)
     root = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
@@ -1701,7 +1781,8 @@ def _inspect_rc(root) -> tuple:
 
 def reliability(dev, card: str, serve_tok_per_s=None):
     """The reliability plane on the publisher → subscriber path, at full
-    gemma3-1b width: a ``WeightPublisher`` on a ``CheckpointManager``
+    gemma3-1b width (``RELIABILITY_LAYERS`` of 26 layers): a
+    ``WeightPublisher`` on a ``CheckpointManager``
     (the checkpoint round's policy, retain 1) over a fast/slow store
     wrapped in a seeded ``FaultPlane``; round 0 publishes the params with
     the fast tier full (every object fails over to the slow tier: a
@@ -1725,6 +1806,8 @@ def reliability(dev, card: str, serve_tok_per_s=None):
     Launches are read per segment, each with the counts set to 0 just
     before it: the publisher's saves (K1-K3), the restore (K4) and
     ``serve.run`` (K7, K8)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -1750,12 +1833,15 @@ def reliability(dev, card: str, serve_tok_per_s=None):
     if free < MIN_FREE_BYTES:
         fail(f"only {free} bytes free under {root}; need "
              f"{int(MIN_FREE_BYTES)}")
-    cfg = get_config("gemma3-1b")
+    cfg = dataclasses.replace(get_config("gemma3-1b"),
+                              n_layers=RELIABILITY_LAYERS)
 
     def params_only(n):
         return n.startswith("params/")
 
-    stats = {"arch": cfg.arch_id, "full_width": True, "card": card}
+    stats = {"arch": cfg.arch_id, "full_width": True, "card": card,
+             "n_layers": RELIABILITY_LAYERS,
+             "of_layers": get_config("gemma3-1b").n_layers}
     launches = {seg: dict.fromkeys(read_counts(), 0)
                 for seg in ("publish", "restore", "serve")}
 
@@ -1889,7 +1975,8 @@ def reliability(dev, card: str, serve_tok_per_s=None):
         reset_counts()
         t0 = time.monotonic()
         res = serve.run("gemma3-1b", workdir=str(root / "serve"),
-                        weight_sync=str(fast), device=dev, **SERVE)
+                        weight_sync=str(fast), device=dev,
+                        n_layers=RELIABILITY_LAYERS, **SERVE)
         serve_s = time.monotonic() - t0
         count("serve")
         if res.get("weight_sync_step") != 1:
@@ -2163,7 +2250,7 @@ def straddle_check(record, leaf_u8, itemsize: int, at: int,
             "chunks": checked, "cuts_after_at": sum(x > at for x in aligned)}
 
 
-def zoo(dev, card: str, profile: bool = False) -> dict:
+def zoo(dev, card: str, profile: bool = False, keep: bool = False) -> dict:
     """``preempt_resume`` of llama4-scout-17b-a16e at full width (d 5120,
     40/8 heads of 128, 16 experts of 8192, top-1 and a shared expert,
     capacity factor 1.5, vocab 202,048), 2 of 48 layers, bf16 params,
@@ -2172,7 +2259,9 @@ def zoo(dev, card: str, profile: bool = False) -> dict:
     saved leaf bit for bit, and its cut points and chunk digests in a
     window across byte 2^31 must equal the host oracle's
     (``straddle_check``). The run's segments must launch K7 and K8 (run A's
-    steps), K1-K3 (run B's saves) and K4 (the restore)."""
+    steps), K1-K3 (run B's saves) and K4 (the restore). With `keep`, run
+    A also takes step 5, and the workdir (run B's step-4 checkpoint) is
+    left for the parallel phase, which removes it."""
     import dataclasses
 
     import torch
@@ -2219,7 +2308,8 @@ def zoo(dev, card: str, profile: bool = False) -> dict:
 
     try:
         run, launches, state = preempt_resume(cfg, root, dev, profile,
-                                              on_saved, on_restored)
+                                              on_saved, on_restored,
+                                              next_steps=int(keep))
         del state
         torch.cuda.empty_cache()
         stats.update(run)
@@ -2232,7 +2322,8 @@ def zoo(dev, card: str, profile: bool = False) -> dict:
     finally:
         held.clear()
         os.environ.pop("REPRO_CKPT_KEEPALIVE_S", None)
-        shutil.rmtree(root, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
     say(f"zoo: {cfg.arch_id} ({ZOO_LAYERS} layers, {stats['params']} "
         f"params), drop_fraction {stats['drop_fraction']}; {ZOO_LEAF} "
@@ -2255,13 +2346,15 @@ def zoo(dev, card: str, profile: bool = False) -> dict:
 # phase 8 — the SSM, RG-LRU and encoder families
 # ---------------------------------------------------------------------------
 
-# served at full width: (layers, prompt length); mamba2-780m at its full
-# depth of 48, recurrentgemma-9b at 6 of 38 (two repeats of RG-LRU, RG-LRU,
-# local attention); prompts past recurrentgemma's window of 2,048, so that
-# the local layers' ring wraps
-FAMILY_SERVE = {"mamba2-780m": (48, 2048), "recurrentgemma-9b": (6, 4096)}
-# trained at full width through ``preempt_resume``: layers of 48
-FAMILY_TRAIN = {"mamba2-780m": 12, "hubert-xlarge": 12}
+# served at full width: (layers, prompt length); mamba2-780m at 24 of 48,
+# recurrentgemma-9b at 3 of 38 (RG-LRU, RG-LRU, local attention); prompts
+# past recurrentgemma's window of 2,048, so that the local layers' ring
+# wraps (48 and 6 layers until the parallel phase joined the script; cut
+# to keep it inside its limit)
+FAMILY_SERVE = {"mamba2-780m": (24, 2048), "recurrentgemma-9b": (3, 4096)}
+# trained at full width through ``preempt_resume``: layers of 48 (12 until
+# the parallel phase joined the script; cut to keep it inside its limit)
+FAMILY_TRAIN = {"mamba2-780m": 6, "hubert-xlarge": 6}
 # K8 at the families' path shapes, bf16, held against its plain version
 # and timed: (B, S, H, K, D, window, causal); hubert's training steps at
 # head dim 80 (the D 128 instantiation, ``kernel_dim``) and recurrentgemma's
@@ -2456,10 +2549,11 @@ def family_serve(dev, arch: str, layers: int, prompt_len: int,
 
 def families(dev, card: str, profile: bool = False) -> dict:
     """The SSM, RG-LRU and encoder families at full width: ``family_serve``
-    of mamba2-780m (48 layers, 2,048-token prompts) and recurrentgemma-9b
-    (6 of 38 layers, 4,096-token prompts); ``preempt_resume`` of
-    mamba2-780m (12 of 48 layers: SSD chunks of 256, whose gradient the
-    reference gives as NaN) and hubert-xlarge (12 of 48 layers, encoder
+    of mamba2-780m (24 of 48 layers, 2,048-token prompts) and
+    recurrentgemma-9b (3 of 38 layers, 4,096-token prompts);
+    ``preempt_resume`` of
+    mamba2-780m (6 of 48 layers: SSD chunks of 256, whose gradient the
+    reference gives as NaN) and hubert-xlarge (6 of 48 layers, encoder
     batches, K8 at head dim 80) with AdamW, each resumed to the
     uninterrupted run's ``params_digest``. Launches are read per segment:
     K7/K8 in the serves and steps, K1-K3 in the training saves, K4 in the
@@ -2526,7 +2620,9 @@ def families(dev, card: str, profile: bool = False) -> dict:
 
 
 # the sharding phase: gemma3-1b at full width, SHARD_LAYERS of its 26 layers
-SHARD_LAYERS = 6
+# (6 until the parallel phase joined the script; cut to keep it inside its
+# limit)
+SHARD_LAYERS = 2
 SHARD_MESH = (2, 2)
 SHARD_MIN_FREE_BYTES = 15e9
 
@@ -2799,6 +2895,417 @@ def sharding(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11 — compute with the sharded layout: four ranks share the card
+# ---------------------------------------------------------------------------
+
+PAR_MESH = (2, 2)
+PAR_WORLD = 4
+PAR_STEP = TRAIN_STEPS + 1     # the step after the zoo's last checkpoint
+# K8 with q_offset: (B, S, H, K, D, window, softcap, q scale, v scale),
+# causal, the rows split four ways over the sequence: llama4-scout's
+# training shape, and gemma2-9b's local layer (window 4096) at S 8192 with
+# q scaled past its softcap (as ZOO_ATTN)
+PAR_ATTN = {"llama4_train_sp4": (4, 1024, 40, 8, 128, 0, 0.0, 1.0, 1.0),
+            "gemma2-9b_local_sp4": (1, 8192, 16, 8, 256, 4096, 50.0, 16.0,
+                                    0.25)}
+# the EP check: one MoE layer of llama4-scout at full width on the
+# training batch's 4 × 1024 tokens, over a (1, 4) mesh (4 experts a rank)
+PAR_EP_MESH = (1, 4)
+PAR_EP_TOKENS = (4, 1024)
+PAR_RTOL = 1e-3                # tests/test_torch_train.py:172, bf16
+PAR_IO_THREADS = 2             # a rank's restore fetches in flight
+
+
+def q_offset_parity(dev) -> dict:
+    """P0: K8 with ``q_offset`` against its plain version at PAR_ATTN, each
+    of the four ranks' row blocks at its offset, within ``attn_err``'s
+    bound; the plain output of the same rows without the offset must fail
+    that bound (for every rank past the first). Times each rank's launch
+    (CUDA events), the plain version and SDPA with the offset's mask
+    (none where the row sets a softcap, which SDPA does not take)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    g = torch.Generator(device=dev)
+    g.manual_seed(29)
+    bf = torch.bfloat16
+    out = {}
+    for name, (B, S, H, K, D, window, cap, qs, vs) in PAR_ATTN.items():
+        q = (torch.randn((B, S, H, D), generator=g, device=dev) * qs).to(bf)
+        k = torch.randn((B, S, K, D), generator=g, device=dev).to(bf)
+        v = (torch.randn((B, S, K, D), generator=g, device=dev) * vs).to(bf)
+        n = S // PAR_WORLD
+        kw = dict(causal=True, window=window, softcap=cap)
+        row = {"shape": [B, S, H, K, D], "rows": n, "window": window,
+               "softcap": cap, "ranks": []}
+        for r in range(PAR_WORLD):
+            off = r * n
+            qr = q[:, off:off + n].contiguous()
+            ref = fa.flash_attention_plain(qr, k, v, q_offset=off, **kw)
+            err, rel = attn_err(fa.flash_attention(qr, k, v, q_offset=off,
+                                                   **kw), ref)
+            if not (err <= ATTN_TOL["bfloat16"] and rel <= 1.0):
+                fail(f"K8 q_offset {name} rank {r} (offset {off}): max abs "
+                     f"err {err}, {rel} of the bound")
+            rank = {"q_offset": off, "max_abs_err": err, "of_bound": rel}
+            if off:
+                _, moved = attn_err(fa.flash_attention_plain(qr, k, v, **kw),
+                                    ref)
+                if not moved > 1.0:
+                    fail(f"K8 q_offset {name} rank {r}: the plain output "
+                         f"without the offset is within the bound ({moved}"
+                         " of it)")
+                rank["no_offset_of_bound"] = moved
+            flops = 4 * D * B * H * fa.unmasked_pairs(n, S, True, window,
+                                                      off)
+            moved_b = (2 * qr.numel() + k.numel() + v.numel()) * 2
+            rank["flops"] = flops
+            rank["bound_ms"] = max(flops / BF16_FLOPS,
+                                   moved_b / HBM_BYTES_PER_S) * 1e3
+            rank["bound_by"] = "operations" if flops / BF16_FLOPS > \
+                moved_b / HBM_BYTES_PER_S else "bytes"
+            rank["ms"] = time_ms(lambda: fa.flash_attention(
+                qr, k, v, q_offset=off, **kw), iters=20, warmup=2)
+            rank["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
+                qr, k, v, q_offset=off, **kw), iters=3)
+            rank["library_ms"] = None
+            if not cap:
+                qt, kt, vt = (a.transpose(1, 2).contiguous()
+                              for a in (qr, k, v))
+                mask = fa._mask(n, S, True, window, dev, off)
+                rank["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                    iters=20, warmup=2)
+                del qt, kt, vt, mask
+            row["ranks"].append(rank)
+            del qr, ref
+        for key in ("ms", "plain_ms", "bound_ms", "flops"):
+            row[key] = sum(x[key] for x in row["ranks"])
+        libs = [x["library_ms"] for x in row["ranks"]]
+        row["library_ms"] = None if None in libs else sum(libs)
+        row["bound_by"] = row["ranks"][0]["bound_by"]
+        out[name] = row
+        del q, k, v
+        torch.cuda.empty_cache()
+    say(f"parallel P0: K8 with q_offset at {list(PAR_ATTN)} within "
+        f"attn_err's bound, the no-offset controls outside it; "
+        f"{json.dumps({n: {k: r[k] for k in ('ms', 'plain_ms', 'bound_ms', 'library_ms')} for n, r in out.items()})}")
+    return out
+
+
+def _probe_collectives(dev) -> dict:
+    """The four collectives of ``sharding.collectives`` on CUDA tensors
+    over the world's gloo group: all-gather, reduce-scatter, all-to-all
+    and all-reduce, each checked against the values it must give."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.sharding import collectives as C
+    r, n = dist.get_rank(), dist.get_world_size()
+    grp = dist.group.WORLD
+    x = torch.full((4, 3), float(r + 1), device=dev)
+    got = {
+        "all_gather": C.all_gather(x, grp, 0),
+        "reduce_scatter": C.reduce_scatter(
+            torch.arange(4 * n * 3, device=dev, dtype=torch.float32)
+            .view(4 * n, 3) * (r + 1), grp, 0),
+        "all_to_all": C.all_to_all(
+            torch.arange(n, device=dev, dtype=torch.float32) + 10 * r, grp),
+        "all_reduce": C.all_reduce(x, grp)}
+    tri = n * (n + 1) // 2
+    want = {
+        "all_gather": torch.arange(1, n + 1, device=dev).float()
+        .repeat_interleave(4)[:, None].expand(4 * n, 3),
+        "reduce_scatter": torch.arange(4 * n * 3, device=dev).float()
+        .view(4 * n, 3)[4 * r:4 * r + 4] * tri,
+        "all_to_all": torch.arange(n, device=dev).float() * 10 + r,
+        "all_reduce": torch.full((4, 3), float(tri), device=dev)}
+    return {k: bool(got[k].device == x.device and torch.equal(got[k],
+                                                               want[k]))
+            for k in got}
+
+
+def _ep_check(dev) -> dict:
+    """P2: ``moe_apply_shard_map`` over the (1, 4) mesh against
+    ``moe.moe_groups`` (``moe_apply`` without the shared expert) on one
+    rank, llama4-scout's MoE layer at full width with ``capacity_factor =
+    n_experts`` (nothing drops), bf16 weights from a seed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.moe import moe_groups
+    from repro_torch.models.moe_shard_map import moe_apply_shard_map
+    from repro_torch.sharding.partition import mesh_axes
+    base = get_config(ZOO_ARCH)
+    m = base.moe
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        m, capacity_factor=float(m.n_experts)))
+    mesh = make_host_mesh(PAR_EP_MESH, ("data", "model"), device=dev)
+    ax = mesh_axes(mesh)
+    mi = mesh.get_coordinate()[1]
+    E, D, Fd = m.n_experts, base.d_model, m.d_expert
+    El = E // ax.tp
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    bf = torch.bfloat16
+
+    def randn(*shape, s):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(bf)
+
+    x = randn(*PAR_EP_TOKENS, D, s=1.0)
+    router = randn(D, E, s=D ** -0.5)
+    full = {"wg": [], "wu": [], "wd": []}
+    mine = {"wg": [], "wu": [], "wd": []}
+    for e in range(E):
+        for k, shape, s in (("wg", (D, Fd), D ** -0.5),
+                            ("wu", (D, Fd), D ** -0.5),
+                            ("wd", (Fd, D), Fd ** -0.5)):
+            w = randn(*shape, s=s)
+            if mi * El <= e < (mi + 1) * El:
+                mine[k].append(w)
+            if mi == 0:
+                full[k].append(w)
+    params = {"router": router, **{k: torch.stack(v) for k, v in
+                                   mine.items()}}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    y, aux = moe_apply_shard_map(params, x, cfg, mesh, ax)
+    torch.cuda.synchronize()
+    out = {"mesh": list(PAR_EP_MESH), "tokens": list(PAR_EP_TOKENS),
+           "seconds": time.monotonic() - t0,
+           "aux": {k: float(v) for k, v in aux.items()}}
+    if mi == 0:
+        ref, raux = moe_groups({"router": router, **{
+            k: torch.stack(v) for k, v in full.items()}}, x, cfg)
+        rf = ref.float()
+        err = (y.float() - rf).abs()
+        bound = rf.abs() * 2.0 ** -7 + PAR_RTOL * rf.pow(2).mean().sqrt()
+        out["y_max_abs_err"] = err.max().item()
+        out["y_of_bound"] = (err / bound).max().item()
+        out["ref_aux"] = {k: float(v) for k, v in raux.items()}
+        out["aux_rel"] = {k: abs(out["aux"][k] - out["ref_aux"][k])
+                          / max(abs(out["ref_aux"][k]), 1e-12)
+                          for k in ("load_balance_loss", "router_z_loss")}
+        out["ok"] = out["y_of_bound"] <= 1.0 and \
+            all(v <= PAR_RTOL for v in out["aux_rel"].values()) and \
+            out["aux"]["drop_fraction"] == out["ref_aux"]["drop_fraction"]
+    return out
+
+
+def parallel_rank(root: Path) -> int:
+    """One of the four ranks of P1/P2 (``--parallel-rank``, spawned by
+    ``parallel``), each a process on the one card in a gloo group (NCCL
+    refuses two ranks on one card): checks the collectives on CUDA
+    tensors, restores the zoo's step-4 checkpoint onto the (2,2) mesh
+    through ``Trainer(mesh=)`` with llama4-scout's preset (K4 decodes its
+    params shards), takes step 5 with the layout step, then runs the EP
+    check. Prints one RESULT line."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(root / "rendezvous_par"), world),
+        rank=rank, world_size=world)
+    from repro_torch.configs import get_config
+    from repro_torch.configs.presets import preset_overrides
+    from repro_torch.core.storage import Tier, TieredStore
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.loop import Trainer, TrainerConfig
+
+    out = {"rank": rank, "probe": _probe_collectives(dev)}
+    mesh = make_host_mesh(PAR_MESH, ("data", "model"), device=dev)
+    cfg = dataclasses.replace(get_config(ZOO_ARCH), n_layers=ZOO_LAYERS,
+                              **preset_overrides(ZOO_ARCH))
+    # two fetches in flight a rank: each rank decodes all ~13 GB of the
+    # zoo's one-shard leaves on the host, four ranks at once
+    tcfg = TrainerConfig(workdir=str(root / "b"), log_every=1, **TRAIN,
+                         **{**TRAIN_CKPT, "io_threads": PAR_IO_THREADS})
+    t = Trainer(cfg, tcfg, store=TieredStore(Tier("fast", root / "b")),
+                device=dev, mesh=mesh)
+    reset_counts()
+    t0 = time.monotonic()
+    t.init_or_restore()
+    torch.cuda.synchronize()
+    out["restore_s"] = time.monotonic() - t0
+    out["restored_from"] = t.restored_from
+    out["restore_bytes_read"] = t.manager.bytes_read
+    out["launches_restore"] = read_counts()
+    out["local_param_bytes"] = sum(
+        x.to_local().nbytes for x in _leaves(t.state["params"]))
+    out["peak_restore_bytes"] = torch.cuda.max_memory_allocated(dev)
+    # the step's peak device bytes by part: forward and backward (up to
+    # the gradient norm), the norm, the optimizer's update
+    peaks = {}
+
+    def mark(part):
+        torch.cuda.synchronize()
+        peaks[part] = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    from repro_torch.train import steps as steps_mod
+    norm, update = steps_mod.global_norm, t.optimizer.update
+
+    def marked_norm(*a, **kw):
+        mark("forward_backward")
+        n = norm(*a, **kw)
+        mark("grad_norm")
+        return n
+
+    def marked_update(*a, **kw):
+        res = update(*a, **kw)
+        mark("update")
+        return res
+
+    steps_mod.global_norm, t.optimizer.update = marked_norm, marked_update
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t.fit(PAR_STEP, stop_after=1)
+    torch.cuda.synchronize()
+    steps_mod.global_norm = norm
+    out["launches_step"] = read_counts()
+    mark("rest")
+    out["peak_by_part"] = peaks
+    out["peak_device_bytes"] = max(peaks.values())
+    h = t.history[-1]
+    out.update(step=h["step"], loss=h["loss"], grad_norm=h["grad_norm"],
+               step_s=h["step_s"])
+    t.manager.close()
+    del t
+    torch.cuda.empty_cache()
+    out["ep"] = _ep_check(dev)
+    print("RESULT::" + json.dumps(out), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel(dev, card: str, zoo_stats: dict) -> dict:
+    """Phase 11, computing with the sharded layout.
+
+    P0. K8 with ``q_offset`` (``q_offset_parity``).
+    P1. Four ranks share the card (``--parallel-rank``; the parent frees
+        its card memory first): the gloo collectives on CUDA tensors,
+        then the zoo's step-4 checkpoint restored onto a (2,2)
+        ``("data", "model")`` mesh (llama4-scout at full width, 2 of 48
+        layers, its preset: ``seq_shard_resid``), and step 5 with the
+        layout step. Each rank's loss and grad_norm must equal the zoo's
+        run A at step 5 within ``PAR_RTOL``, its peak device bytes must
+        stay below the full bf16 parameter tree's, and K4 (restore), K7
+        and K8 (step) must launch in every rank.
+    P2. ``moe_apply_shard_map`` over four ranks against ``moe_apply``'s
+        routed experts on one (``_ep_check``).
+    Removes the zoo's workdir when it ends."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    root = ROOT / "build" / "chip_smoke_zoo"
+    cfg = get_config(ZOO_ARCH)
+    out = {"arch": cfg.arch_id, "n_layers": ZOO_LAYERS, "mesh": list(PAR_MESH),
+           "world": PAR_WORLD, "card": card, "step": PAR_STEP}
+    procs = []
+    try:
+        t0 = time.monotonic()
+        out["q_offset"] = q_offset_parity(dev)
+        out["p0_s"] = time.monotonic() - t0
+        abstract = Model(dataclasses.replace(
+            cfg, n_layers=ZOO_LAYERS)).abstract_params()
+        out["param_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in _leaves(abstract))
+        ref = {h["step"]: h for h in zoo_stats["next"]}[PAR_STEP]
+        out["run_a"] = ref
+        torch.cuda.empty_cache()
+        out["parent_device_bytes"] = torch.cuda.memory_allocated(dev)
+        env = {**os.environ, "WORLD_SIZE": str(PAR_WORLD), "LOCAL_RANK": "0",
+               "REPRO_CKPT_KEEPALIVE_S": "120",
+               "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 4)
+                                          // PAR_WORLD))}
+        t0 = time.monotonic()
+        logs = [open(root / f"par_rank{r}.log", "w+")
+                for r in range(PAR_WORLD)]
+        outs = [open(root / f"par_rank{r}.out", "w+")
+                for r in range(PAR_WORLD)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-rank",
+             str(root)], stdout=outs[r], stderr=logs[r],
+            env={**env, "RANK": str(r)}) for r in range(PAR_WORLD)]
+        ranks = []
+        for r, p in enumerate(procs):
+            p.wait(timeout=900)
+            logs[r].seek(0)
+            outs[r].seek(0)
+            err, text = logs[r].read(), outs[r].read()
+            if p.returncode:
+                fail(f"parallel rank {r} exited {p.returncode}; its stderr "
+                     f"ends:\n{err[-4000:]}")
+            ranks.append(json.loads(next(
+                line for line in text.splitlines()
+                if line.startswith("RESULT::"))[len("RESULT::"):]))
+        out["p1_p2_wall_s"] = time.monotonic() - t0
+        out["ranks"] = ranks
+        (ROOT / "chiprun_out" / "chip_smoke_parallel_ranks.json").write_text(
+            json.dumps(out, indent=1))
+        for r in ranks:
+            if not all(r["probe"].values()):
+                fail(f"parallel rank {r['rank']}: gloo collectives on CUDA "
+                     f"tensors gave wrong values: {r['probe']}")
+            if r["restored_from"] != TRAIN_STEPS or r["step"] != PAR_STEP:
+                fail(f"parallel rank {r['rank']} restored step "
+                     f"{r['restored_from']} and took step {r['step']}")
+            for key in ("loss", "grad_norm"):
+                rel = abs(r[key] - ref[key]) / abs(ref[key])
+                r[f"{key}_rel_diff"] = rel
+                if not rel <= PAR_RTOL:
+                    fail(f"parallel rank {r['rank']}: step {PAR_STEP} {key} "
+                         f"{r[key]!r} vs run A's {ref[key]!r} (rel {rel})")
+            if not r["peak_device_bytes"] < out["param_bytes"]:
+                fail(f"parallel rank {r['rank']}: peak device bytes "
+                     f"{r['peak_device_bytes']} not below the full "
+                     f"parameter tree's {out['param_bytes']}")
+            for seg, kernels in (("launches_restore", ("byteplane_inv",)),
+                                 ("launches_step", ("rmsnorm",
+                                                    "flash_attention"))):
+                for k in kernels:
+                    if r[seg][k] <= 0:
+                        fail(f"parallel rank {r['rank']}: kernel {k} was not "
+                             f"launched in its {seg[9:]}")
+        ep = ranks[0]["ep"]
+        if not ep.get("ok"):
+            fail(f"parallel P2: moe_apply_shard_map differs from moe_apply "
+                 f"beyond the bf16 tolerance: {json.dumps(ep)}")
+        out["launches"] = {
+            "restore": _sum_counts(*[r["launches_restore"] for r in ranks]),
+            "step": _sum_counts(*[r["launches_step"] for r in ranks])}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    say(f"parallel ({card}): {PAR_WORLD} ranks on one card, mesh "
+        f"{PAR_MESH}: restore s {[round(r['restore_s'], 3) for r in ranks]}, "
+        f"step {PAR_STEP} s {[round(r['step_s'], 3) for r in ranks]}, peak "
+        f"bytes {[r['peak_device_bytes'] for r in ranks]} (full params "
+        f"{out['param_bytes']}), loss rel diff "
+        f"{[r['loss_rel_diff'] for r in ranks]}, grad_norm rel diff "
+        f"{[r['grad_norm_rel_diff'] for r in ranks]}; EP "
+        f"{json.dumps(ep)}")
+    return out
+
+
 def _leaves(tree):
     from repro_torch.core.split_state import leaf_paths
     return [t for _, t in leaf_paths(tree)]
@@ -2810,6 +3317,8 @@ def main() -> int:
              "(src/repro_torch missing)")
     if sys.argv[1:2] == ["--sharding-rank"]:
         return sharding_rank(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        return parallel_rank(Path(sys.argv[2]))
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -2822,7 +3331,8 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     from repro_torch.kernels import build
     t0 = time.monotonic()
-    logs = build.build_all()
+    with phase("build"):
+        logs = build.build_all()
     say(f"build: {len(build.KERNELS)} kernels from {len(logs)} sources in "
         f"{time.monotonic() - t0:.3f} s (nvcc, sm_90a) into "
         f"{build.build_dir()}")
@@ -2849,8 +3359,9 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    parity(dev)
-    model_kernel_parity(dev)
+    with phase("parity"):
+        parity(dev)
+        model_kernel_parity(dev)
     if "--parity-only" in sys.argv[1:]:
         say(card)
         say(json.dumps({"ok": True, "device": {
@@ -2863,6 +3374,21 @@ def main() -> int:
         z["parity"] = parity_zoo
         say(card)
         say(json.dumps({"zoo": z}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if "--parallel-only" in sys.argv[1:]:
+        model_kernel_parity(dev)
+        parity_zoo = zoo_parity(dev)
+        z = zoo(dev, card, keep=True)
+        z["parity"] = parity_zoo
+        par = parallel(dev, card, z)
+        (out_dir / "chip_smoke_parallel.json").write_text(
+            json.dumps({"card": card, "zoo": z, "parallel": par}, indent=1))
+        say(card)
+        say(json.dumps({"zoo": z}))
+        say(json.dumps({"parallel": par}))
         say(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -2897,33 +3423,44 @@ def main() -> int:
         return 0
     profile = "--profile" in sys.argv[1:]
     reset_counts()
-    state, launches, stats = main_path(dev, card, profile=profile)
-    embed = state["params"]["embed"]
-    del state
-    torch.cuda.empty_cache()
+    with phase("main_path"):
+        state, launches, stats = main_path(dev, card, profile=profile)
+        embed = state["params"]["embed"]
+        del state
+        torch.cuda.empty_cache()
     reset_counts()
-    serve_stats, serve_launches = serving(dev, card, profile=profile)
+    with phase("serving"):
+        serve_stats, serve_launches = serving(dev, card, profile=profile)
     reset_counts()
-    train_stats, train_launches = training(dev, card, profile=profile)
-    torch.cuda.empty_cache()
-    rel = reliability(dev, card, serve_stats["decode_tok_per_s"])
-    torch.cuda.empty_cache()
-    parity_zoo = zoo_parity(dev)
-    zoo_stats = zoo(dev, card, profile=profile)
-    zoo_stats["parity"] = parity_zoo
-    torch.cuda.empty_cache()
-    parity_fam = families_parity(dev)
-    fam = families(dev, card, profile=profile)
-    fam["parity"] = parity_fam
-    torch.cuda.empty_cache()
-    shard = sharding(dev, card)
+    with phase("training"):
+        train_stats, train_launches = training(dev, card, profile=profile)
+        torch.cuda.empty_cache()
+    with phase("reliability"):
+        rel = reliability(dev, card, serve_stats["decode_tok_per_s"])
+        torch.cuda.empty_cache()
+    with phase("zoo"):
+        parity_zoo = zoo_parity(dev)
+        zoo_stats = zoo(dev, card, profile=profile, keep=True)
+        zoo_stats["parity"] = parity_zoo
+        torch.cuda.empty_cache()
+    with phase("parallel"):
+        par = parallel(dev, card, zoo_stats)
+        torch.cuda.empty_cache()
+    with phase("families"):
+        parity_fam = families_parity(dev)
+        fam = families(dev, card, profile=profile)
+        fam["parity"] = parity_fam
+        torch.cuda.empty_cache()
+    with phase("sharding"):
+        shard = sharding(dev, card)
     codec = ("byteplane_inv", "quantize_blocks", "dequantize_blocks")
-    rows = kernel_table(dev, embed, {
-        **launches, **{k: train_launches[k] for k in codec}})
-    del embed
-    torch.cuda.empty_cache()
-    rows += model_kernel_table(dev, {
-        **serve_launches, "rmsnorm_train": train_launches["rmsnorm"]})
+    with phase("kernel_tables"):
+        rows = kernel_table(dev, embed, {
+            **launches, **{k: train_launches[k] for k in codec}})
+        del embed
+        torch.cuda.empty_cache()
+        rows += model_kernel_table(dev, {
+            **serve_launches, "rmsnorm_train": train_launches["rmsnorm"]})
     for row in rows:
         row["launches_reliability"] = {
             seg: c[row["name"]] for seg, c in rel["launches"].items()}
@@ -2933,16 +3470,23 @@ def main() -> int:
             seg: c[row["name"]] for seg, c in fam["launches"].items()}
         row["launches_sharding"] = {
             seg: c[row["name"]] for seg, c in shard["launches"].items()}
+        row["launches_parallel"] = {
+            seg: c[row["name"]] for seg, c in par["launches"].items()}
         if row["name"] == "flash_attention":
             row["families"] = fam["k8"]
+            row["q_offset"] = par["q_offset"]
         elif row["name"] == "rmsnorm":
             row["families"] = fam["k7"]
-    stats["rans_stage"] = rans_stage_ms(dev)
+    with phase("rans_stage"):
+        stats["rans_stage"] = rans_stage_ms(dev)
+    PHASE_S["total"] = time.monotonic() - T_START
+    say(json.dumps({"phase_s": PHASE_S}))
     say(card)
     say(json.dumps({"reliability": rel}))
     say(json.dumps({"zoo": zoo_stats}))
     say(json.dumps({"families": fam}))
     say(json.dumps({"sharding": shard}))
+    say(json.dumps({"parallel": par}))
     say(json.dumps({"main_path": stats, "serving": serve_stats,
                     "training": train_stats}))
     say(json.dumps({"kernels": rows}))
@@ -2950,8 +3494,8 @@ def main() -> int:
         json.dumps({"card": card, "main_path": stats,
                     "serving": serve_stats, "training": train_stats,
                     "reliability": rel, "zoo": zoo_stats, "families": fam,
-                    "sharding": shard, "kernels": rows},
-                   indent=1))
+                    "sharding": shard, "parallel": par, "kernels": rows,
+                    "phase_s": PHASE_S}, indent=1))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -859,10 +859,15 @@ class CheckpointManager:
             schedule, _ = plan.first_use_schedule(
                 leaf_priority, self.policy.restore.frontier_classes)
             futures = self._restore.prefetch_async(plan, schedule)
+            out = [None] * len(plan.jobs)
             try:
-                out = [self._restore.leaf_to_device(step_dir, job,
-                                                    futures[i].result())
-                       for i, job in enumerate(plan.jobs)]
+                # place the leaves in the order their fetches went out,
+                # and drop each host copy once it is placed: the host
+                # holds the fetches in flight, not the whole state
+                for i in schedule:
+                    out[i] = self._restore.leaf_to_device(
+                        step_dir, plan.jobs[i], futures[i].result())
+                    futures[i] = None
             except BaseException:
                 self._drain_futures(futures)
                 raise

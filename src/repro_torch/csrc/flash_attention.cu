@@ -9,8 +9,11 @@
 // repeated),
 //   s[i, j] = (q[i] in f32 * scale) . k[j]            (f32)
 //   s       = tanh(s / softcap) * softcap               (softcap > 0)
-//   s       = -1e30 where masked: j >= Sk, causal j > i, window
-//             i - j >= W, and without causality also j - i >= W
+//   s       = -1e30 where masked: j >= Sk, causal j > p, window
+//             p - j >= W, and without causality also j - p >= W, where
+//             p = i + q_offset is the row's position in the key sequence
+//             (0 unless the rows are one rank's slice of a longer
+//             sequence: sequence-parallel attention)
 //   online softmax over key tiles with m, l, acc in f32; p is rounded to
 //   the value type before it multiplies V (p.astype(v.dtype) in Pallas);
 //   out[i]  = acc / max(l, 1e-30), rounded once to the output type.
@@ -110,7 +113,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
              int H, int KH, int dr, float scale, float softcap, int causal,
-             int window) {
+             int window, int qoff) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int QS = D + 4;           // padded row stride of Qs and Ks
   constexpr int PS = BK + 1;          // padded row stride of Ps
@@ -136,14 +139,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // key tiles that some row of this q tile may see
   const int nk = (Sk + BK - 1) / BK;
+  const int p0 = q0 + qoff;            // the tile's first position
   int kt_end = nk;
   if (causal) {
-    kt_end = min(kt_end, (q0 + BQ - 1) / BK + 1);
+    kt_end = min(kt_end, (p0 + BQ - 1) / BK + 1);
   } else if (window > 0) {
-    kt_end = min(kt_end, (q0 + BQ - 1 + window - 1) / BK + 1);
+    kt_end = min(kt_end, (p0 + BQ - 1 + window - 1) / BK + 1);
   }
   int kt_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+  if (window > 0 && p0 - window + 1 > 0) kt_begin = (p0 - window + 1) / BK;
 
   float m = NEG_INF, l = 0.f;
   float acc[D / 4];
@@ -190,11 +194,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kp = k0 + c4 + 4 * j;
       float x = s[j];
       if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+      const int ap = qpos + qoff;
       bool ok = qpos < Sq && kp < Sk;
-      if (causal) ok = ok && qpos >= kp;
+      if (causal) ok = ok && ap >= kp;
       if (window > 0) {
-        ok = ok && qpos - kp < window;
-        if (!causal) ok = ok && kp - qpos < window;
+        ok = ok && ap - kp < window;
+        if (!causal) ok = ok && kp - ap < window;
       }
       s[j] = ok ? x : NEG_INF;
       rmax = fmaxf(rmax, s[j]);
@@ -276,11 +281,12 @@ constexpr int wg_smem_bytes() {
 
 // The tile arithmetic of ops.tile_plan: the key tiles [kb, ke) that some
 // real row of q tile qt may see (ke <= kb: none), and whether key tile k0
-// needs the per-element mask for rows [q0, q_last].
+// needs the per-element mask for the rows at positions [q0, q_last]. A
+// row's position is its index plus qoff.
 __device__ __forceinline__ void key_range(int qt, int bq, int Sq, int Sk,
-                                          int causal, int window, int& kb,
-                                          int& ke) {
-  const int q0 = qt * bq, q_last = min(q0 + bq, Sq) - 1;
+                                          int causal, int window, int qoff,
+                                          int& kb, int& ke) {
+  const int q0 = qt * bq + qoff, q_last = min(qt * bq + bq, Sq) - 1 + qoff;
   ke = (Sk + WG_BK - 1) / WG_BK;
   if (causal)
     ke = min(ke, q_last / WG_BK + 1);
@@ -302,9 +308,9 @@ __device__ __forceinline__ bool tile_masked(int q0, int q_last, int k0,
 }
 
 __device__ __forceinline__ int tile_work(int qt, int bq, int Sq, int Sk,
-                                         int causal, int window) {
+                                         int causal, int window, int qoff) {
   int kb, ke;
-  key_range(qt, bq, Sq, Sk, causal, window, kb, ke);
+  key_range(qt, bq, Sq, Sk, causal, window, qoff, kb, ke);
   return max(ke - kb, 0);
 }
 
@@ -644,7 +650,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_v,
                    const __grid_constant__ CUtensorMap tm_o, int Sq, int Sk,
                    int H, int KH, float mul, float cap_out, int causal,
-                   int window) {
+                   int window, int qoff) {
   using G = Geom<D>;
   constexpr int BQ = 64 * NWG;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -669,10 +675,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // the q tile of rank blockIdx.y: rank(c) counts the tiles before c in
   // order of non-increasing work, the later tile first among equals
   for (int c = threadIdx.x; c < nq; c += blockDim.x) {
-    const int wc = tile_work(c, BQ, Sq, Sk, causal, window);
+    const int wc = tile_work(c, BQ, Sq, Sk, causal, window, qoff);
     int rank = 0;
     for (int u = 0; u < nq; ++u) {
-      const int wu = tile_work(u, BQ, Sq, Sk, causal, window);
+      const int wu = tile_work(u, BQ, Sq, Sk, causal, window, qoff);
       rank += (wu > wc) || (wu == wc && u > c);
     }
     if (rank == (int)blockIdx.y) *s_qt = c;
@@ -691,7 +697,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int qt = *s_qt;
   const int q0 = qt * BQ, q_last = min(q0 + BQ, Sq) - 1;
   int kb, ke;
-  key_range(qt, BQ, Sq, Sk, causal, window, kb, ke);
+  key_range(qt, BQ, Sq, Sk, causal, window, qoff, kb, ke);
 
   if (threadIdx.x < 128) {
     // ---- producer ----
@@ -733,8 +739,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int c2 = 2 * (lane & 3);
   const int row0 = q0 + cw * 64 + warp * 16 + (lane >> 2);   // and + 8
   const uint32_t qa = sQ + cw * 64 * G::RB;
-  const RowKeys rk[2] = {row_keys(row0, Sk, causal, window),
-                         row_keys(row0 + 8, Sk, causal, window)};
+  const RowKeys rk[2] = {row_keys(row0 + qoff, Sk, causal, window),
+                         row_keys(row0 + 8 + qoff, Sk, causal, window)};
   // this warpgroup's rows are a 64-row q tile of their own: it computes
   // the CTA's tiles [i0, i1) that tile_plan(.., 64, ..) gives them, with
   // its own mask flags, and only releases the others
@@ -743,7 +749,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   int i0 = n, i1 = n;
   if (wq0 < Sq) {
     int wkb, wke;
-    key_range(qt * NWG + cw, 64, Sq, Sk, causal, window, wkb, wke);
+    key_range(qt * NWG + cw, 64, Sq, Sk, causal, window, qoff, wkb, wke);
     i0 = min(max(wkb - kb, 0), n);
     i1 = min(max(wke - kb, i0), n);
   }
@@ -785,7 +791,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   auto softmax = [&](float (&sc)[WG_BK / 2], float (&m)[2], float (&l)[2],
                      float (&corr)[2], int i) {
     const int k0 = (kb + i) * WG_BK;
-    if (tile_masked(wq0, wq_last, k0, Sk, causal, window))
+    if (tile_masked(wq0 + qoff, wq_last + qoff, k0, Sk, causal, window))
       softmax_tile<true, CAP>(sc, m, l, corr, mul, cap_out, rk, k0, c2);
     else
       softmax_tile<false, CAP>(sc, m, l, corr, mul, cap_out, rk, k0, c2);
@@ -969,7 +975,8 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 template <int D, int NWG, bool CAP>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  int B, int Sq, int Sk, int H, int KH, int dr, float scale,
-                 float softcap, int causal, int window, cudaStream_t stream) {
+                 float softcap, int causal, int window, int qoff,
+                 cudaStream_t stream) {
   constexpr int BQ = 64 * NWG;
   constexpr int bytes = wg_smem_bytes<D, NWG>();
   static_assert(bytes <= 232448, "shared memory over the H100's 227 KB");
@@ -984,7 +991,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const float mul = CAP ? scale / softcap : scale * LOG2E;
   const dim3 grid((unsigned)(B * H), (unsigned)((Sq + BQ - 1) / BQ));
   flash_wgmma_kernel<D, NWG, CAP><<<grid, 128 * (NWG + 1), bytes, stream>>>(
-      mq, mk, mv, mo, Sq, Sk, H, KH, mul, softcap * LOG2E, causal, window);
+      mq, mk, mv, mo, Sq, Sk, H, KH, mul, softcap * LOG2E, causal, window,
+      qoff);
   return (int)cudaGetLastError();
 }
 
@@ -1004,29 +1012,32 @@ int choose_block_q(int B, int H, int Sq, int window) {
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int B, int Sq, int Sk, int H, int KH, int dr, float scale,
-                float softcap, int causal, int window, int block_q,
+                float softcap, int causal, int window, int qoff, int block_q,
                 cudaStream_t s) {
   if (block_q == 0) block_q = choose_block_q(B, H, Sq, window);
   const bool cap = softcap > 0.f;
   if (block_q == 128)
     return cap ? launch_wgmma<D, 2, true>(q, k, v, out, B, Sq, Sk, H, KH, dr,
-                                          scale, softcap, causal, window, s)
+                                          scale, softcap, causal, window,
+                                          qoff, s)
                : launch_wgmma<D, 2, false>(q, k, v, out, B, Sq, Sk, H, KH,
                                            dr, scale, softcap, causal,
-                                           window, s);
+                                           window, qoff, s);
   if (block_q == 64)
     return cap ? launch_wgmma<D, 1, true>(q, k, v, out, B, Sq, Sk, H, KH, dr,
-                                          scale, softcap, causal, window, s)
+                                          scale, softcap, causal, window,
+                                          qoff, s)
                : launch_wgmma<D, 1, false>(q, k, v, out, B, Sq, Sk, H, KH,
                                            dr, scale, softcap, causal,
-                                           window, s);
+                                           window, qoff, s);
   return (int)cudaErrorInvalidValue;
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                int Sq, int Sk, int H, int KH, int dr, float scale,
-               float softcap, int causal, int window, cudaStream_t stream) {
+               float softcap, int causal, int window, int qoff,
+               cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
   static std::atomic<uint64_t> done{0};
   const int err = raise_smem_limit(flash_kernel<D, float>, bytes, done);
@@ -1035,19 +1046,20 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   flash_kernel<D, float><<<grid, THREADS, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KH,
-      dr, scale, softcap, causal, window);
+      dr, scale, softcap, causal, window, qoff);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int KH, int dr, float scale, float softcap,
-           int causal, int window, int bf16, int block_q, cudaStream_t s) {
+           int causal, int window, int qoff, int bf16, int block_q,
+           cudaStream_t s) {
   if (bf16)
     return launch_bf16<D>(q, k, v, out, B, Sq, Sk, H, KH, dr, scale, softcap,
-                          causal, window, block_q, s);
+                          causal, window, qoff, block_q, s);
   return launch_f32<D>(q, k, v, out, B, Sq, Sk, H, KH, dr, scale, softcap,
-                       causal, window, s);
+                       causal, window, qoff, s);
 }
 
 // the instantiation a head dim runs (ops.kernel_dim): the next of 16, 32,
@@ -1062,28 +1074,30 @@ int kernel_dim(int D) {
 // q, out: contiguous (B, Sq, H, D); k, v: contiguous (B, Sk, KH, D), all of
 // the type `bf16` names (1: bf16, 0: f32), 16-byte aligned. D in 16..256,
 // a multiple of 16 (the Pallas kernel's domain), H % KH == 0. window 0 means no window; softcap 0 means
-// none. block_q (bf16 only): 64 or 128 query rows a CTA, 0 for the
+// none. q_offset >= 0: query row i sits at position i + q_offset of the
+// key sequence (the causal and window masks compare positions). block_q (bf16 only): 64 or 128 query rows a CTA, 0 for the
 // launcher's choice per shape (`choose_block_q`). Returns the first CUDA
 // error of the set-up or the launch (0 on success).
 extern "C" int rt_flash_attention_bq(const void* q, const void* k,
                                      const void* v, void* out, int B, int Sq,
                                      int Sk, int H, int KH, int D,
                                      float scale, float softcap, int causal,
-                                     int window, int bf16, int block_q,
-                                     void* stream) {
+                                     int window, int q_offset, int bf16,
+                                     int block_q, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
+  if (q_offset < 0) return (int)cudaErrorInvalidValue;
   switch (kernel_dim(D)) {
     case 16: return launch<16>(q, k, v, out, B, Sq, Sk, H, KH, D, scale,
-                               softcap, causal, window, bf16, block_q, s);
+                               softcap, causal, window, q_offset, bf16, block_q, s);
     case 32: return launch<32>(q, k, v, out, B, Sq, Sk, H, KH, D, scale,
-                               softcap, causal, window, bf16, block_q, s);
+                               softcap, causal, window, q_offset, bf16, block_q, s);
     case 64: return launch<64>(q, k, v, out, B, Sq, Sk, H, KH, D, scale,
-                               softcap, causal, window, bf16, block_q, s);
+                               softcap, causal, window, q_offset, bf16, block_q, s);
     case 128: return launch<128>(q, k, v, out, B, Sq, Sk, H, KH, D, scale,
-                                 softcap, causal, window, bf16, block_q, s);
+                                 softcap, causal, window, q_offset, bf16, block_q, s);
     case 256: return launch<256>(q, k, v, out, B, Sq, Sk, H, KH, D, scale,
-                                 softcap, causal, window, bf16, block_q, s);
+                                 softcap, causal, window, q_offset, bf16, block_q, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1093,7 +1107,8 @@ extern "C" int rt_flash_attention(const void* q, const void* k,
                                   const void* v, void* out, int B, int Sq,
                                   int Sk, int H, int KH, int D, float scale,
                                   float softcap, int causal, int window,
-                                  int bf16, void* stream) {
+                                  int q_offset, int bf16, void* stream) {
   return rt_flash_attention_bq(q, k, v, out, B, Sq, Sk, H, KH, D, scale,
-                               softcap, causal, window, bf16, 0, stream);
+                               softcap, causal, window, q_offset, bf16, 0,
+                               stream);
 }

@@ -38,10 +38,11 @@ SIGNATURES = {
                                _INT, _INT, _INT, _INT, _INT, _INT, _P)),
     "flash_attention": ("rt_flash_attention",
                         (_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT,
-                         _F32, _F32, _INT, _INT, _INT, _P)),
+                         _F32, _F32, _INT, _INT, _INT, _INT, _P)),
     "flash_attention_bq": ("rt_flash_attention_bq",
                            (_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT,
-                            _INT, _F32, _F32, _INT, _INT, _INT, _INT, _P)),
+                            _INT, _F32, _F32, _INT, _INT, _INT, _INT, _INT,
+                            _P)),
     "byteplane_inv": ("rt_byteplane_inv", (_P, _P, _P, _I64, _I64, _I64,
                                            _P)),
     "quantize_blocks": ("rt_quantize_blocks", (_P, _P, _P, _I64, _INT, _P)),

@@ -24,8 +24,12 @@
                          backward Pallas kernel).
 
 Masks: ``causal`` drops keys after the query; ``window`` W > 0 drops keys
-W or more before it and, without causality, W or more after it. GQA
-indexes kv head ``h // (H // K)``; K/V are never repeated.
+W or more before it and, without causality, W or more after it. A query
+row's position is its index plus ``q_offset`` (0 but for sequence-parallel
+attention, where a rank holds the rows ``[q_offset, q_offset + Sq)`` of the
+sequence against every key: the reference's ``attention_full`` on the whole
+sequence, restricted to those rows). GQA indexes kv head ``h // (H // K)``;
+K/V are never repeated.
 
 Head dims: the Pallas kernel takes any D as its full last block dim; the
 kernel takes 16..256 in steps of 16 (``HEAD_DIMS``). A D that is not a
@@ -58,9 +62,10 @@ launches = 0            # kernel launches since the last reset
 _count_lock = threading.Lock()
 
 
-def _mask(sq: int, sk: int, causal: bool, window: int, device):
+def _mask(sq: int, sk: int, causal: bool, window: int, device,
+          q_offset: int = 0):
     import torch
-    qpos = torch.arange(sq, device=device)[:, None]
+    qpos = torch.arange(q_offset, q_offset + sq, device=device)[:, None]
     kpos = torch.arange(sk, device=device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
@@ -80,7 +85,7 @@ def _softcap(s, cap: float):
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          softcap: float = 0.0, scale=None):
+                          softcap: float = 0.0, scale=None, q_offset: int = 0):
     """q: (B, Sq, H, D); k, v: (B, Sk, K, D) → (B, Sq, H, D) in q's
     dtype, dense per (b, h)."""
     import torch
@@ -91,7 +96,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     qf = q.float().view(B, Sq, K, G, D).permute(0, 2, 3, 1, 4) * scale
     kf = k.float().permute(0, 2, 1, 3)[:, :, None]         # (B, K, 1, Sk, D)
     s = _softcap(qf @ kf.transpose(-1, -2), softcap)        # (B, K, G, Sq, Sk)
-    s = torch.where(_mask(Sq, Sk, causal, window, q.device), s, NEG_INF)
+    s = torch.where(_mask(Sq, Sk, causal, window, q.device, q_offset), s,
+                    NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
     vf = v.float().permute(0, 2, 1, 3)[:, :, None]
@@ -100,7 +106,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
-                        softcap: float = 0.0, scale=None):
+                        softcap: float = 0.0, scale=None, q_offset: int = 0):
     """q: (B, H, Sq, D); k, v: (B, K, Sk, D) → (B, H, Sq, D): plain
     softmax attention with K/V repeated over the group."""
     import torch
@@ -111,7 +117,8 @@ def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
     kh = k.repeat_interleave(G, dim=1).float()
     vh = v.repeat_interleave(G, dim=1).float()
     s = _softcap((q.float() * scale) @ kh.transpose(-1, -2), softcap)
-    s = torch.where(_mask(Sq, Sk, causal, window, q.device), s, NEG_INF)
+    s = torch.where(_mask(Sq, Sk, causal, window, q.device, q_offset), s,
+                    NEG_INF)
     return (torch.softmax(s, dim=-1) @ vh).to(q.dtype)
 
 
@@ -132,7 +139,8 @@ def _aligned(t):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, scale=None, block_q: int = 0):
+                    softcap: float = 0.0, scale=None, q_offset: int = 0,
+                    block_q: int = 0):
     """q: (B, Sq, H, D); k, v: (B, Sk, K, D) → (B, Sq, H, D). CUDA tensors
     → the K8 kernel on the current stream; CPU tensors →
     ``flash_attention_plain``. `block_q` (bf16 only): the query rows a
@@ -141,7 +149,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     import torch
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap, scale=scale)
+                                     softcap=softcap, scale=scale,
+                                     q_offset=q_offset)
     B, Sq, H, D = q.shape
     Bk, Sk, K, Dk = k.shape
     if tuple(v.shape) != tuple(k.shape) or Bk != B or Dk != D or H % K:
@@ -153,6 +162,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise TypeError(f"attention kernel takes bf16/f32 q, k, v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     kernel_dim(D)
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if block_q and block_q not in BLOCK_QS:
         raise ValueError(f"block_q takes 0 or {BLOCK_QS}, got {block_q}")
     if not (k.is_cuda and v.is_cuda):
@@ -164,7 +175,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
             Sk, H, K, D, float(scale), float(softcap or 0.0),
-            int(bool(causal)), int(window or 0),
+            int(bool(causal)), int(window or 0), int(q_offset),
             int(q.dtype == torch.bfloat16))
     if block_q:
         build.launch("flash_attention_bq", q, *args, int(block_q))
@@ -177,7 +188,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def attention_backward(q, k, v, do, *, causal: bool = True, window: int = 0,
-                       softcap: float = 0.0, scale=None):
+                       softcap: float = 0.0, scale=None, q_offset: int = 0):
     """(dq, dk, dv) of ``flash_attention_plain`` for the cotangent `do`,
     in f32 and rounded once to the inputs' dtype. P is recomputed from q
     and k under the same scale, softcap and mask (nothing of the forward is
@@ -195,7 +206,7 @@ def attention_backward(q, k, v, do, *, causal: bool = True, window: int = 0,
     t = torch.tanh(s / softcap) if softcap and softcap > 0.0 else None
     if t is not None:
         s = t * softcap
-    mask = _mask(Sq, Sk, causal, window, q.device)
+    mask = _mask(Sq, Sk, causal, window, q.device, q_offset)
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     del s
@@ -220,33 +231,35 @@ def _autograd_fn():
 
     class Attention(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, q, k, v, causal, window, softcap, scale):
+        def forward(ctx, q, k, v, causal, window, softcap, scale, q_offset):
             ctx.save_for_backward(q, k, v)
             ctx.kw = dict(causal=causal, window=window, softcap=softcap,
-                          scale=scale)
+                          scale=scale, q_offset=q_offset)
             return flash_attention(q, k, v, **ctx.kw)
 
         @staticmethod
         def backward(ctx, do):
             q, k, v = ctx.saved_tensors
             return (*attention_backward(q, k, v, do, **ctx.kw),
-                    None, None, None, None)
+                    None, None, None, None, None)
 
     return Attention
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
-              softcap: float = 0.0, scale=None):
+              softcap: float = 0.0, scale=None, q_offset: int = 0):
     """Differentiable attention on (B, S, H, D): K8 forward (plain version
     on the CPU), ``attention_backward`` as its gradient."""
-    return _autograd_fn().apply(q, k, v, causal, window, softcap, scale)
+    return _autograd_fn().apply(q, k, v, causal, window, softcap, scale,
+                                int(q_offset))
 
 
-def unmasked_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+def unmasked_pairs(sq: int, sk: int, causal: bool, window: int,
+                   q_offset: int = 0) -> int:
     """(query, key) pairs that the mask keeps for one (b, h): the work the
     kernel's flop count is taken over."""
     total = 0
-    for i in range(sq):
+    for i in range(q_offset, q_offset + sq):
         lo, hi = 0, sk                       # keys [lo, hi) kept
         if causal:
             hi = min(hi, i + 1)
@@ -259,11 +272,12 @@ def unmasked_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
 
 
 def key_range(qt: int, sq: int, sk: int, causal: bool, window: int, bq: int,
-              bk: int) -> tuple:
+              bk: int, q_offset: int = 0) -> tuple:
     """Key tiles [kb, ke) that some row of query tile `qt` (rows
-    [qt·bq, min(qt·bq + bq, sq))) may see; ke <= kb when none."""
-    q0 = qt * bq
-    q_last = min(q0 + bq, sq) - 1
+    [qt·bq, min(qt·bq + bq, sq)), at positions `q_offset` further) may
+    see; ke <= kb when none."""
+    q0 = qt * bq + q_offset
+    q_last = min(qt * bq + bq, sq) - 1 + q_offset
     ke = -(-sk // bk)
     if causal:
         ke = min(ke, q_last // bk + 1)
@@ -291,7 +305,7 @@ def tile_masked(q0: int, q_last: int, k0: int, sk: int, causal: bool,
 
 
 def tile_plan(sq: int, sk: int, causal: bool, window: int, bq: int,
-              bk: int = BLOCK_K) -> tuple:
+              bk: int = BLOCK_K, q_offset: int = 0) -> tuple:
     """The bf16 kernel's tile arithmetic: (tiles, order). ``tiles[qt]`` is
     the list of (key tile, masked) that query tile `qt` visits, in the
     kernel's order; ``order`` the launch order of the query tiles (rank r
@@ -299,13 +313,14 @@ def tile_plan(sq: int, sk: int, causal: bool, window: int, bq: int,
     the later tile first among equals. With `bq` 128 a CTA loads the key
     tiles of this plan, and each of its two consumer warpgroups computes
     those of its own 64-row tile, ``tile_plan(.., 64, bk)``, with that
-    plan's mask flags."""
+    plan's mask flags. `q_offset` shifts every row's position: the key
+    tiles past the last row's position are never visited."""
     nq = -(-sq // bq)
     tiles = []
     for qt in range(nq):
-        q0 = qt * bq
-        q_last = min(q0 + bq, sq) - 1
-        kb, ke = key_range(qt, sq, sk, causal, window, bq, bk)
+        q0 = qt * bq + q_offset
+        q_last = min(qt * bq + bq, sq) - 1 + q_offset
+        kb, ke = key_range(qt, sq, sk, causal, window, bq, bk, q_offset)
         tiles.append([(kt, tile_masked(q0, q_last, kt * bk, sk, causal,
                                        window, bk))
                       for kt in range(kb, ke)])

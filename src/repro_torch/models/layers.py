@@ -120,11 +120,13 @@ def _softcap(s, cap):
     return s
 
 
-def attention_full(q, k, v, *, causal, softcap=0.0, scale=None):
-    """q: (B, S, H, D); k, v: (B, S, K, D), H % K == 0 → (B, S, H, D): the
-    K8 kernel with no window."""
+def attention_full(q, k, v, *, causal, softcap=0.0, scale=None,
+                   q_offset=0):
+    """q: (B, Sq, H, D); k, v: (B, Sk, K, D), H % K == 0 → (B, Sq, H, D):
+    the K8 kernel with no window. q's rows sit at positions `q_offset`..
+    of k's (sequence-parallel attention; 0 and Sq == Sk otherwise)."""
     return attention(q, k, v, causal=causal, window=0, softcap=softcap,
-                     scale=scale)
+                     scale=scale, q_offset=q_offset)
 
 
 def attention_local(q, k, v, *, window, softcap=0.0, scale=None,

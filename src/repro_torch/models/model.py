@@ -20,13 +20,20 @@ over a stage's repeats becomes a Python loop over the leading axis.
     loss, metrics       = model.loss(params, {"tokens": tokens})
     loss, metrics       = model.loss(params, {"features", "labels", "mask"})
 
-MoE stages route their MLP through ``models.moe.moe_apply`` (the JAX
-package's no-mesh route; ``moe_impl="shard_map"`` waits for the sharding
-slice): a prefill or training forward groups its B·S tokens in groups of
-up to 4,096, a decode step groups the batch, so the capacities differ as
-in JAX. ``loss`` adds ``aux_loss_weight · load_balance_loss + 1e-4 ·
-router_z_loss`` and reports the three aux values, each summed over the MoE
-layers.
+MoE stages route their MLP through ``models.moe.moe_apply``: a prefill or
+training forward groups its B·S tokens in groups of up to 4,096, a decode
+step groups the batch, so the capacities differ as in JAX. ``loss`` adds
+``aux_loss_weight · load_balance_loss + 1e-4 · router_z_loss`` and reports
+the three aux values, each summed over the MoE layers.
+
+On a mesh, as in the reference, ``set_constrainer(act_constrainer(cfg,
+mesh))`` installs the activation layout (the ``Trainer`` does) and
+``set_exec_mesh(mesh)`` the mesh of the explicit expert-parallel MoE
+(``moe_impl="shard_map"``; the ``Trainer`` never sets it, as the
+reference's does not). With a layout installed, ``loss`` takes each rank's
+local parameter shards and computes the training forward with that layout
+(``models.parallel``): the same function, no rank holding the whole
+parameter tree.
 
 Deviations, each named where it happens: ``decode_step`` writes the new
 key/value, and an SSM or RG-LRU block's new conv history and state, into
@@ -55,6 +62,28 @@ from .layers import (_softcap, apply_norm, apply_rope, attention_decode,
 from .moe import moe_apply
 
 ATTN = (ATTN_GLOBAL, ATTN_LOCAL)
+
+# the activation layout of a mesh (``sharding.partition.ActLayout``),
+# installed by the Trainer; None keeps the model mesh-free
+_constrain = None
+
+# the mesh of the explicit expert-parallel MoE (``moe_shard_map``); None
+# routes every MoE layer through ``moe_apply``
+_exec = {"mesh": None, "ax": None}
+
+
+def set_constrainer(layout):
+    global _constrain
+    _constrain = layout
+
+
+def set_exec_mesh(mesh):
+    if mesh is None:
+        _exec["mesh"] = _exec["ax"] = None
+    else:
+        from ..sharding.partition import mesh_axes
+        _exec["mesh"] = mesh
+        _exec["ax"] = mesh_axes(mesh)
 
 
 def _unstack(tree, repeat: int) -> list:
@@ -115,24 +144,25 @@ class Model:
         return out
 
     def _qkv(self, p, x, kind, ropes):
+        return tuple(self._proj(p, x, n, kind, ropes) for n in "qkv")
+
+    def _proj(self, p, x, name, kind, ropes):
+        """One of q, k, v: einsum("bsd,dhk->bshk") with its bias, norm (q
+        and k) and rope (q and k; the tables' rows are x's positions)."""
         cfg = self.cfg
         B, S, d = x.shape
-
-        def proj(w):            # einsum("bsd,dhk->bshk")
-            return (x @ w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
-
-        q, k, v = proj(p["q"]), proj(p["k"]), proj(p["v"])
-        if cfg.use_bias and "q_b" in p:
-            q, k, v = q + p["q_b"], k + p["k_b"], v + p["v_b"]
+        w = p[name]
+        t = (x @ w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
+        if cfg.use_bias and f"{name}_b" in p:
+            t = t + p[f"{name}_b"]
+        if name == "v":
+            return t
         if cfg.qk_norm:
-            q = rmsnorm(q, p["q_norm"]["scale"])
-            k = rmsnorm(k, p["k_norm"]["scale"])
+            t = rmsnorm(t, p[f"{name}_norm"]["scale"])
         rope = ropes.get(kind)
         if rope is not None:
-            cos, sin, rot = rope
-            q = apply_rope(q, cos, sin, rot)
-            k = apply_rope(k, cos, sin, rot)
-        return q, k, v
+            t = apply_rope(t, *rope)
+        return t
 
     def _out(self, p, o):
         """einsum("bshk,hkd->bsd") plus the output bias."""
@@ -396,9 +426,15 @@ class Model:
         next-token NLL over the first S−1 positions, through
         ``chunked_xent`` in 512-token chunks, plus a MoE model's weighted
         aux losses. Metrics: ``nll``, ``loss`` and, with MoE stages, the
-        three aux values."""
+        three aux values. With a layout installed (``set_constrainer``),
+        `params` are this rank's local shards and the result is the loss of
+        its batch rows (``train.steps._layout_step`` sums the ranks'
+        shares)."""
         import torch
         cfg = self.cfg
+        if _constrain is not None:
+            from . import parallel
+            return parallel.loss(self, params, batch, _constrain, _exec)
         if cfg.family == "encoder":
             return self._encoder_loss(params, batch)
         tokens = batch["tokens"]

@@ -22,31 +22,18 @@ probabilities the lower expert index comes first, as ``jax.lax.top_k``
 takes it. The expert ids carry no gradient (the reference's
 ``stop_gradient``); ``topw`` is read from ``probs`` through a one-hot
 product, so its gradient is an elementwise one.
+
+On a mesh (``models.parallel``) a rank holds the experts ``[e0, e0 +
+E_loc)``: ``moe_groups(.., experts=(e0, E_loc))`` routes every group over
+all E experts as here, fills and runs only its own experts' slots, and
+returns their part of the combine (an assignment to another rank's expert
+adds 0), which the caller sums over the ranks.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 
 from .layers import _act, mlp_apply
-
-# the sharded step's token gather (``train.steps``): x → (the batch's rows
-# that form whole groups with x, a function taking x's rows back out)
-_GATHER = None
-
-
-@contextlib.contextmanager
-def token_gather(gather):
-    """Within the block ``moe_apply`` groups ``gather(x)``'s tokens and
-    returns its own rows of the result: a rank that holds fewer tokens
-    than one group of the global batch routes the group the one-device
-    step forms (capacity depends on the group's size)."""
-    global _GATHER
-    prev, _GATHER = _GATHER, gather
-    try:
-        yield
-    finally:
-        _GATHER = prev
 
 
 def _mean(x, dim=None):
@@ -129,14 +116,17 @@ def _dispatch_slots(e_flat, pos_flat, counts, k: int, C: int, zero_row):
 def moe_apply(params, x, cfg, *, group_size: int = 4096):
     """x: (B, S, D) → (y, aux) with aux = {load_balance_loss,
     router_z_loss, drop_fraction} (f32 scalars)."""
-    if _GATHER is not None:
-        full, take = _GATHER(x)
-        y, aux = _moe_groups(params, full, cfg, group_size)
-        return take(y), aux
-    return _moe_groups(params, x, cfg, group_size)
+    y, aux = moe_groups(params, x, cfg, group_size)
+    if cfg.moe.n_shared_experts:
+        y = y + mlp_apply(params["shared"], x, cfg)
+    return y, aux
 
 
-def _moe_groups(params, x, cfg, group_size):
+def moe_groups(params, x, cfg, group_size: int = 4096, experts=None):
+    """The routed experts' part of ``moe_apply`` (no shared expert): x
+    (B, S, D) in groups of min(group_size, B·S) tokens → (y, aux).
+    `experts` (e0, E_loc): params hold experts [e0, e0 + E_loc) only, and y
+    is their part of the combine."""
     import torch
     import torch.nn.functional as F
     m = cfg.moe
@@ -167,27 +157,28 @@ def _moe_groups(params, x, cfg, group_size):
     within = pos < C
     drop_frac = 1.0 - _mean(within.float())
 
-    # ---- dispatch: gather tokens into (G, E, C, D) ----
+    # ---- dispatch: gather tokens into (G, E_loc, C, D) ----
+    e0, El = experts or (0, E)
     rows = torch.cat([xt.reshape(G * g, D), xt.new_zeros((1, D))])
     slots = _dispatch_slots(e_flat, pos, counts, k, C, G * g)
-    buf = F.embedding(slots, rows).view(G, E, C, D)
+    slots = slots[:, e0 * C:(e0 + El) * C]
+    buf = F.embedding(slots, rows).view(G, El, C, D)
 
     # ---- expert FFNs: one batched product per expert ----
     act = _act(cfg.act)
-    be = buf.transpose(0, 1).reshape(E, G * C, D)
+    be = buf.transpose(0, 1).reshape(El, G * C, D)
     h = act(torch.bmm(be, params["wg"])) * torch.bmm(be, params["wu"])
-    out = torch.bmm(h, params["wd"])                          # (E, G·C, D)
-    out = out.view(E, G, C, D).transpose(0, 1).reshape(G * E * C, D)
+    out = torch.bmm(h, params["wd"])                          # (El, G·C, D)
+    out = out.view(El, G, C, D).transpose(0, 1).reshape(G * El * C, D)
 
     # ---- combine: gather back (clamped slot), weight, sum over k ----
-    base = torch.arange(G, device=x.device)[:, None] * (E * C)
-    at = base + e_flat * C + pos.clamp(max=C - 1)
+    base = torch.arange(G, device=x.device)[:, None] * (El * C)
+    el = e_flat - e0
+    mine = (el >= 0) & (el < El)
+    at = base + el.clamp(0, El - 1) * C + pos.clamp(max=C - 1)
     y = F.embedding(at.long(), out).view(G, g, k, D)
-    w = (topw * within.view(G, g, k)).to(y.dtype)
+    w = (topw * (within & mine).view(G, g, k)).to(y.dtype)
     y = torch.einsum("gtkd,gtk->gtd", y, w)
-
-    if m.n_shared_experts:
-        y = y + mlp_apply(params["shared"], xt, cfg)
 
     aux = {"load_balance_loss": lb_loss, "router_z_loss": z_loss,
            "drop_fraction": drop_frac}

@@ -1,0 +1,471 @@
+"""The training forward on a mesh: ``Model.loss`` with an activation layout
+installed (``model.set_constrainer(act_constrainer(cfg, mesh))``). The
+reference annotates seven activations (``src/repro/models/model.py:204-206,
+:220, :242, :270, :287``) and GSPMD inserts the collectives; here the
+forward computes that layout with the differentiable collectives of
+``sharding.collectives``.
+
+Parameters are each rank's local shards (``DTensor.to_local()``). A layer
+gathers its own leaves just before it uses them (``_param``): every dim
+sharded over ``"data"`` (FSDP) is all-gathered, a dim sharded over the TP
+axis (``"model"``) stays local, and the leaf passes ``copy_to`` over every
+axis that replicates it. The SSM and RG-LRU mixers gather their leaves over
+both axes and compute replicated over ``"model"`` (mamba2's packed
+``in_proj`` does not split column-wise); so does everything under
+``dp_over_model``, which makes ``"model"`` a batch axis. Each layer runs
+under ``torch.utils.checkpoint``: autograd keeps the layer's input, not its
+gathered weights, and the backward gathers them again (the reference's
+per-layer remat), so a rank holds one layer's gathered weights at a time.
+
+The layout at each site (``tp`` the size of the TP axis):
+
+* residual: the batch rows of this rank, all S positions, or S/tp of them
+  under ``seq_shard_resid`` (``seq_resid``); RMSNorm (K7) runs on those
+  rows;
+* attention, heads divisible by tp: q/k/v column-parallel on this rank's
+  H/tp heads over all S rows (an all-gather of the sequence shards under
+  ``seq_resid``); k/v where the kv heads do not divide take the heads the
+  rank's q group needs; ``o`` row-parallel: its partial sum is all-reduced,
+  or reduce-scattered onto the sequence shards;
+* attention, heads not divisible, global, ``seq_shard_attn``: every head
+  for this rank's S/tp query rows against the whole key sequence (K8 with
+  ``q_offset``); local attention, or no ``seq_shard_attn``: replicated;
+* dense MLP: ``wg``/``wu``/``wi`` column-parallel, ``wd`` row-parallel;
+* MoE: experts split over ``"model"``, every rank routing the same groups
+  (``_moe``), or the explicit all-to-all schedule of ``moe_shard_map`` when
+  an exec mesh is set;
+* embedding: vocab-parallel (a masked local lookup, summed over the TP
+  axis); the cross-entropy: vocab-parallel (the max and the sum of the
+  softmax and the target logit reduced over the TP axis).
+
+Every site where a tile of the vocab, heads, hidden or experts does not
+divide tp falls back to the replicated layout of the partition rules (the
+leaf is then whole on every rank).
+
+The loss and metrics come back as the loss of this rank's batch rows,
+equal on every rank of the TP axis; the step weighs each rank's share and
+sums the shares over the mesh (``train.steps``). Gradients of the local
+shards come out of the collectives' backward: each sum over ranks is the
+adjoint of a forward collective.
+"""
+from __future__ import annotations
+
+import math
+
+from ..configs.base import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, SSM
+from ..sharding import collectives as C
+from ..sharding.partition import entry_axes
+from . import rglru as rglru_mod
+from . import ssm as ssm_mod
+from .layers import (_softcap, apply_norm, attention_full, attention_local,
+                     conv_pos_embed, mlp_apply)
+
+ATTN = (ATTN_GLOBAL, ATTN_LOCAL)
+FULL = ("ssm", "rglru")          # mixers gathered over every axis
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def _param(lay, name, t, *, full=False, layer=False):
+    """Leaf `name` (its local shard `t`; `layer`: one layer of a stacked
+    leaf) as the layer computes with it → (tensor, whether a dim stays
+    split over the TP axis)."""
+    spec = lay.param_spec(name)[1 if layer else 0:]
+    names = tuple(lay.mesh.mesh_dim_names)
+    gathers, used, split = [], set(), False
+    for d, e in enumerate(spec):
+        for a in reversed(entry_axes(e)):          # minor axis first
+            used.add(a)
+            if a == lay.tp_axis and not full:
+                split = True
+            else:
+                gathers.append((lay.group(a), d))
+    replicated = [lay.group(a) for a in names if a not in used]
+    return C.gather_param(t, gathers, replicated), split
+
+
+def _gather(lay, prefix, names, leaves):
+    """The layer's nested parameter dict from its ``/``-joined leaf
+    `names` under `prefix` → (dict, set of the names split over TP)."""
+    tree, split = {}, set()
+    for name, t in zip(names, leaves):
+        parts = name.split("/")
+        g, s = _param(lay, f"{prefix}/{name}", t, layer=True,
+                      full=any(p in FULL for p in parts))
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = g
+        if s:
+            split.add(name)
+    return tree, split
+
+
+# ---------------------------------------------------------------------------
+# the sequence layout of the residual stream
+# ---------------------------------------------------------------------------
+
+def _tp(lay):
+    return lay.group(lay.tp_axis)
+
+
+def _full(lay, x):
+    """Residual rows → all S rows (an all-gather under ``seq_resid``)."""
+    return C.all_gather(x, _tp(lay), 1) if lay.seq_resid else x
+
+
+def _rows(lay, x):
+    """All S rows, the same on every TP rank → this rank's residual
+    rows."""
+    if not lay.seq_resid:
+        return x
+    n = x.shape[1] // lay.tp
+    return x[:, lay.coord(lay.tp_axis) * n:][:, :n]
+
+
+def _reduce(lay, x):
+    """A partial sum over the TP ranks, all S rows → the residual rows of
+    the sum (reduce-scatter under ``seq_resid``, else all-reduce)."""
+    if lay.seq_resid:
+        return C.reduce_scatter(x, _tp(lay), 1)
+    return C.all_reduce(x, _tp(lay))
+
+
+def _row_ropes(ropes, lo, n):
+    return {k: (cos[lo:lo + n], sin[lo:lo + n], rot)
+            for k, (cos, sin, rot) in ropes.items()}
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _attention(model, lay, p, split, h, kind, ropes):
+    cfg = model.cfg
+    B, _, d = h.shape
+    common = dict(softcap=cfg.attn_softcap, scale=cfg.attn_scale or None)
+    local = kind == ATTN_LOCAL
+    if "q" in split:
+        # column-parallel q/k/v on this rank's heads, row-parallel o
+        x = _full(lay, h)
+        S = x.shape[1]
+        Hl = p["q"].shape[1]
+        h0 = lay.coord(lay.tp_axis) * Hl
+        pl = dict(p)
+        if cfg.use_bias and "q_b" in p:
+            pl["q_b"] = p["q_b"][h0:h0 + Hl]
+        if "k" in split:
+            # this rank's kv heads are its q heads' groups
+            Kl = p["k"].shape[1]
+            k0 = lay.coord(lay.tp_axis) * Kl
+            for n in ("k", "v"):
+                if cfg.use_bias and f"{n}_b" in p:
+                    pl[f"{n}_b"] = p[f"{n}_b"][k0:k0 + Kl]
+        else:
+            # kv heads replicated: the ones this rank's q heads read
+            G = cfg.n_heads // cfg.n_kv_heads
+            k0, k1 = h0 // G, (h0 + Hl - 1) // G + 1
+            if k1 - k0 == 1 or (Hl % G == 0 and h0 % G == 0):
+                sel = slice(k0, k1)
+            else:
+                import torch
+                sel = torch.arange(h0, h0 + Hl, device=h.device) // G
+            for n in ("k", "v"):
+                pl[n] = p[n][:, sel]
+                if cfg.use_bias and f"{n}_b" in p:
+                    pl[f"{n}_b"] = p[f"{n}_b"][sel]
+        q, k, v = model._qkv(pl, x, kind, ropes)
+        if local:
+            o = attention_local(q, k, v, window=cfg.window,
+                                causal=cfg.causal, **common)
+        else:
+            o = attention_full(q, k, v, causal=cfg.causal, **common)
+        out = _reduce(lay, o.reshape(B, S, -1) @ p["o"].reshape(-1, d))
+        if cfg.use_bias and "o_b" in p:
+            out = out + p["o_b"]
+        return out
+    if lay.seq_attn and not local:
+        # every head for this rank's query rows against all keys
+        x = _full(lay, h)
+        S = x.shape[1]
+        n = S // lay.tp
+        off = lay.coord(lay.tp_axis) * n
+        xr = h if lay.seq_resid else x[:, off:off + n]
+        q = model._proj(p, xr, "q", kind, _row_ropes(ropes, off, n))
+        k = model._proj(p, x, "k", kind, ropes)
+        v = model._proj(p, x, "v", kind, ropes)
+        o = attention_full(q, k, v, causal=cfg.causal, q_offset=off,
+                           **common)
+        out = model._out(p, o)
+        return out if lay.seq_resid else C.all_gather(out, _tp(lay), 1)
+    out, _ = model._attn_sequence(p, _full(lay, h), kind, ropes)
+    return _rows(lay, out)
+
+
+def _mlp(lay, cfg, p, split, prefix, h):
+    """The dense MLP (leaves ``{prefix}/w*``) on residual rows `h`."""
+    if f"{prefix}/wd" not in split:
+        return mlp_apply(p, h, cfg)          # row-wise: any rows
+    ph = dict(p)
+    if "bi" in p:
+        n = p["wi"].shape[1]
+        lo = lay.coord(lay.tp_axis) * n
+        ph["bi"] = p["bi"][lo:lo + n]
+    ph.pop("bd", None)
+    y = _reduce(lay, mlp_apply(ph, _full(lay, h), cfg))
+    return y + p["bd"] if "bd" in p else y
+
+
+def _mixer(cfg, p, lay, h, kind):
+    """SSM / RG-LRU: whole leaves, all S rows, replicated over TP."""
+    key, fwd = ("rglru", rglru_mod.rglru_forward) if kind == RGLRU \
+        else ("ssm", ssm_mod.ssd_forward)
+    return _rows(lay, fwd(p[key], _full(lay, h), cfg))
+
+
+def _moe(model, lay, p, split, h, exec_mesh):
+    """The MoE half on residual rows `h` → (y, aux)."""
+    cfg = model.cfg
+    if cfg.moe_impl == "shard_map" and exec_mesh["mesh"] is not None:
+        from .moe_shard_map import applicable, moe_apply_shard_map
+        ax = exec_mesh["ax"]
+        # this rank's rows are its token slice where the sequence or the
+        # batch is split over "model"
+        sliced = lay.seq_resid or (ax.model in lay.batch_axes)
+        B = h.shape[0] * _size(lay, lay.batch_axes)
+        S = h.shape[1] * (lay.tp if lay.seq_resid else 1)
+        if B % ax.batch_size == 0 and \
+                applicable(cfg, ax, (B // ax.batch_size) * S):
+            y, aux = moe_apply_shard_map(p, h, cfg, exec_mesh["mesh"], ax,
+                                         sliced=sliced)
+            if cfg.moe.n_shared_experts:
+                y = y + _mlp(lay, cfg, p["shared"], split, "moe/shared", h)
+            return y, aux
+    from .moe import moe_groups
+    x = _full(lay, h)
+    El = p["wg"].shape[0]
+    esplit = "moe/wg" in split
+    experts = (lay.coord(lay.tp_axis) * El, El) if esplit else None
+    # a group holds min(4096, T) tokens of the GLOBAL batch: where this
+    # rank's rows do not make whole groups, route the batch's rows (the
+    # groups the one-device step forms) and keep this rank's
+    t_local = x.shape[0] * x.shape[1]
+    n_rows = _size(lay, lay.batch_axes)
+    take = None
+    if n_rows > 1 and t_local % min(4096, t_local * n_rows):
+        b = x.shape[0]
+        for a in reversed(lay.batch_axes):
+            x = C.all_gather(x, lay.group(a), 0)
+        lo = b * _rank_in(lay, lay.batch_axes)
+        take = (lo, b)
+    y, aux = moe_groups(p, x, cfg, experts=experts)
+    if take is not None:
+        y = y[take[0]:take[0] + take[1]]
+    y = _reduce(lay, y) if esplit else _rows(lay, y)
+    if cfg.moe.n_shared_experts:
+        y = y + _mlp(lay, cfg, p["shared"], split, "moe/shared", h)
+    return y, aux
+
+
+def _size(lay, axes) -> int:
+    sizes = dict(zip(lay.mesh.mesh_dim_names, tuple(lay.mesh.shape)))
+    return math.prod(sizes[a] for a in axes)
+
+
+def _rank_in(lay, axes) -> int:
+    """This rank's mixed-radix position over `axes` (major first)."""
+    sizes = dict(zip(lay.mesh.mesh_dim_names, tuple(lay.mesh.shape)))
+    i = 0
+    for a in axes:
+        i = i * sizes[a] + lay.coord(a)
+    return i
+
+
+def _block(model, lay, p, split, x, kind, moe, ropes, exec_mesh):
+    cfg = model.cfg
+    h = apply_norm(p["norm_in"], x, cfg)
+    if kind in ATTN:
+        o = _attention(model, lay, p, split, h, kind, ropes)
+    else:
+        o = _mixer(cfg, p, lay, h, kind)
+    if cfg.post_norm:
+        o = apply_norm(p["norm_post"], o, cfg)
+    x = x + o
+    if kind == SSM:
+        return x, {}
+    h = apply_norm(p["norm_mlp"], x, cfg)
+    if moe:
+        y, aux = _moe(model, lay, p["moe"], split, h, exec_mesh)
+    else:
+        y, aux = _mlp(lay, cfg, p["mlp"], split, "mlp", h), {}
+    if cfg.post_norm:
+        y = apply_norm(p["norm_post_mlp"], y, cfg)
+    return x + y, aux
+
+
+AUX = ("load_balance_loss", "router_z_loss", "drop_fraction")
+
+
+def _stages(model, lay, params, x, ropes, exec_mesh):
+    """Every layer under ``torch.utils.checkpoint`` → (x, aux summed over
+    the MoE layers)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from ..core.split_state import leaf_paths
+    aux_tot = {}
+    for si, stage in enumerate(model.stages):
+        prefix = f"stage_{si}"
+        flat = leaf_paths(params[prefix])
+        names = [n for n, _ in flat]
+        layers = [t.unbind(0) for _, t in flat]
+
+        def layer(x, *leaves, _stage=stage, _prefix=prefix, _names=names):
+            p, split = _gather(lay, _prefix, _names, leaves)
+            aux = {}
+            for j, kind in enumerate(_stage.kinds):
+                sub = {n.split("/", 1)[1] for n in split
+                       if n.startswith(f"b{j}/")}
+                x, a = _block(model, lay, p[f"b{j}"], sub, x, kind,
+                              _stage.moe, ropes, exec_mesh)
+                for k, v in a.items():
+                    aux[k] = aux[k] + v if k in aux else v
+            return (x, *(aux[k] for k in AUX if k in aux))
+
+        for r in range(stage.repeat):
+            out = checkpoint(layer, x, *(t[r] for t in layers),
+                             use_reentrant=False)
+            x = out[0]
+            for k, v in zip([k for k in AUX if stage.moe], out[1:]):
+                aux_tot[k] = aux_tot[k] + v if k in aux_tot else v
+    return x, aux_tot
+
+
+# ---------------------------------------------------------------------------
+# embedding and cross-entropy
+# ---------------------------------------------------------------------------
+
+def _embed(lay, cfg, w, split, tokens):
+    import torch
+    import torch.nn.functional as F
+    if split:
+        n = w.shape[0]
+        local = tokens.long() - lay.coord(lay.tp_axis) * n
+        inside = (local >= 0) & (local < n)
+        e = F.embedding(local.clamp(0, n - 1), w) * \
+            inside[..., None].to(w.dtype)
+        x = _reduce(lay, e)
+    else:
+        x = _rows(lay, F.embedding(tokens.long(), w))
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def _xent_chunk(xb, wf, tb, mb, softcap, v0, group):
+    """One chunk's Σ masked NLL in f32; with `group`, `wf` holds vocab
+    columns [v0, v0 + V_loc) and the softmax spans the group's columns."""
+    logits = _softcap(xb.float() @ wf, softcap)
+    if group is None:
+        lse = logits.logsumexp(dim=-1)
+        correct = logits.gather(-1, tb.long()[..., None])[..., 0]
+        return ((lse - correct) * mb).sum()
+    n = wf.shape[1]
+    m = C.all_reduce_max(logits.amax(dim=-1), group)
+    lse = m + C.all_reduce((logits - m[..., None]).exp().sum(-1),
+                           group).log()
+    local = tb.long() - v0
+    inside = (local >= 0) & (local < n)
+    picked = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    correct = C.all_reduce(picked * inside, group)
+    return ((lse - correct) * mb).sum()
+
+
+def _xent(lay, x, w, split, targets, mask, *, softcap, chunk):
+    """``model.chunked_xent`` on residual rows `x` (targets/mask: all S
+    rows): vocab-parallel over all S rows where the head is split over
+    TP, else over the rank's rows (their sums added over TP under
+    ``seq_resid``). The same value on every TP rank."""
+    import torch
+    import torch.nn.functional as F
+    from torch.utils.checkpoint import checkpoint
+    denom = torch.clamp(mask.sum(), min=1.0)
+    group, v0 = None, 0
+    if split:
+        x = _full(lay, x)
+        group = _tp(lay)
+        v0 = lay.coord(lay.tp_axis) * w.shape[1]
+    else:
+        targets, mask = _rows(lay, targets), _rows(lay, mask)
+    B, S, d = x.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    wf = w.float()
+    nll = torch.zeros((), device=x.device)
+    for c in range(0, S + pad, chunk):
+        nll = nll + checkpoint(_xent_chunk, x[:, c:c + chunk], wf,
+                               targets[:, c:c + chunk], mask[:, c:c + chunk],
+                               softcap, v0, group, use_reentrant=False)
+    if not split and lay.seq_resid:
+        nll = C.all_reduce(nll, _tp(lay))
+    return nll / denom
+
+
+# ---------------------------------------------------------------------------
+# the loss
+# ---------------------------------------------------------------------------
+
+def loss(model, params, batch, lay, exec_mesh):
+    """``Model.loss`` of this rank's batch rows with the layout `lay`:
+    (loss, metrics), the same on every TP rank; `params` holds the local
+    shards."""
+    import torch
+    cfg = model.cfg
+    top = {n: _param(lay, n, params[n]) for n in params
+           if not n.startswith("stage_") and not isinstance(params[n], dict)}
+    head, hsplit = top["embed"] if cfg.tie_embeddings else top["lm_head"]
+    if cfg.tie_embeddings:
+        head = head.T
+    final = {k: _param(lay, f"final_norm/{k}", t)[0]
+             for k, t in params["final_norm"].items()}
+    if cfg.family == "encoder":
+        feats = batch["features"]
+        x = feats.to(getattr(torch, cfg.dtype))
+        if cfg.positional == "conv":
+            w = _param(lay, "pos_conv/w", params["pos_conv"]["w"])[0]
+            x = conv_pos_embed({"w": w}, x)
+        S = x.shape[1]
+        x = _rows(lay, x)
+    else:
+        tokens = batch["tokens"]
+        S = tokens.shape[1]
+        x = _embed(lay, cfg, *top["embed"], tokens)
+    ropes = model._ropes(torch.arange(S, device=x.device))
+    x, aux = _stages(model, lay, params, x, ropes, exec_mesh)
+    x = apply_norm(final, x, cfg)
+    if cfg.family == "encoder":
+        nll = _xent(lay, x, head, hsplit, batch["labels"],
+                    batch["mask"].float(), softcap=0.0, chunk=S)
+        return nll, {"loss": nll.detach(), "nll": nll.detach()}
+    B = tokens.shape[0]
+    targets = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], dim=1)
+    mask = torch.cat([torch.ones((B, S - 1), device=x.device),
+                      torch.zeros((B, 1), device=x.device)], dim=1)
+    # 512-row chunks whatever the residual layout: the reference takes the
+    # whole sequence under seq_shard_resid so that XLA does not slice a
+    # sharded dim; here the head's rows are gathered first
+    nll = _xent(lay, x, head, hsplit, targets, mask,
+                softcap=cfg.final_softcap, chunk=512)
+    out = nll
+    if cfg.moe is not None and "load_balance_loss" in aux:
+        out = out + cfg.moe.aux_loss_weight * aux["load_balance_loss"] \
+            + 1e-4 * aux["router_z_loss"]
+    metrics = {"nll": nll.detach(), **{k: v.detach() for k, v in aux.items()},
+               "loss": out.detach()}
+    return out, metrics

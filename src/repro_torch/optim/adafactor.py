@@ -101,17 +101,21 @@ class Adafactor:
     def update(self, grads, state, params, lr, layout=None):
         """Apply one step in place; returns (params, opt_state), the trees
         that were passed in. With a `layout`, every tree holds this rank's
-        local shards."""
+        local shards. Each gradient leaf is taken out of `grads` as it is
+        applied (the tree is left empty), smallest leaf first, so that the
+        largest leaves' f32 temporaries meet only their own gradients (the
+        leaves are independent: the order changes no value)."""
         import torch
         state["count"].add_(1)
-        flat_g = dict(leaf_paths(grads))
         flat_s = {}
         for name, t in leaf_paths(state["f"]):
             leaf, key = name.rsplit("/", 1)
             flat_s.setdefault(leaf, {})[key] = t
         with torch.no_grad():
-            for name, p in leaf_paths(params):
-                self._leaf(p, flat_g[name], flat_s[name], lr, name, layout)
+            for name, p in sorted(leaf_paths(params),
+                                  key=lambda kv: kv[1].numel()):
+                self._leaf(p, _pop_leaf(grads, name), flat_s[name], lr,
+                           name, layout)
         return params, state
 
     def state_sharding(self, param_specs, abstract_params, mesh):
@@ -134,6 +138,14 @@ class Adafactor:
 
         return {"f": walk(param_specs, abstract_params),
                 "count": replicated(mesh)}
+
+
+def _pop_leaf(tree, name: str):
+    """Take leaf `name` (``/``-joined) out of the nested dict `tree`."""
+    *path, last = name.split("/")
+    for k in path:
+        tree = tree[k]
+    return tree.pop(last)
 
 
 def _mean(t, dim, name, layout, param_dim, keepdim=False):

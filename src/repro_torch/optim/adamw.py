@@ -30,7 +30,8 @@ def global_norm(grads, layout=None):
     import torch
 
     def sq(name, g):
-        s = g.float().square().sum()
+        # one f32 copy, squared in place (the sum of g.float().square())
+        s = g.to(torch.float32, copy=True).square_().sum()
         return s if layout is None else layout.psum_(name, s)
 
     return torch.sqrt(sum(sq(n, g) for n, g in leaf_paths(grads)))

@@ -21,9 +21,11 @@ mesh dim that shards tensor dim ``d``, ``Replicate()`` on every other. The
 mesh may be a ``DeviceMesh`` or a ``launch.mesh.AbstractMesh``: specs,
 placements and index ranges read only its shape and axis names.
 
-Megatron-style activation constraints (the reference's ``act_constrainer``)
-change how a step is computed, not the state's layout; they come with the
-compute-parallel slice.
+``act_constrainer(cfg, mesh)`` gives the reference's activation layout:
+the spec of each named activation (``resid``, ``attn_q``, ``attn_kv``,
+their ``_local`` forms and ``moe_in``), which the model's training forward
+on a mesh computes with explicit collectives (``models.parallel``) where
+GSPMD would insert them.
 """
 from __future__ import annotations
 
@@ -303,6 +305,100 @@ def batch_axes_for(cfg, ax: MeshAxes, batch_dim: int):
         if batch_dim % (ax.batch_size * ax.tp) == 0:
             return full
     return ax.batch
+
+
+# ---------------------------------------------------------------------------
+# activation layout (installed into the model via models.set_constrainer)
+# ---------------------------------------------------------------------------
+
+class ActLayout:
+    """``act_constrainer(cfg, mesh)``: the reference's activation specs
+    (``specs``, name → spec, key by key ``src/repro/sharding/partition.py::
+    act_constrainer``) and what the model's forward on a mesh reads from
+    them (``models.parallel``):
+
+    * ``tp_axis``: the axis that splits heads, FFN hidden, vocab and
+      experts (``"model"``), or None where nothing does (no model axis, a
+      model axis of one, or ``dp_over_model``, which makes it a batch axis);
+    * ``seq_resid``: the residual stream holds this rank's 1/tp of the
+      sequence (``resid`` sharded on dim 1: ``seq_shard_resid``);
+    * ``seq_attn``: global attention computes this rank's 1/tp of the
+      query rows against the whole key sequence, every head (``attn_q``
+      sharded on dim 1: ``seq_shard_attn`` where the heads do not divide);
+    * ``param_spec(name)``: a parameter leaf's spec (the partition rules).
+
+    ``batch_axes`` (the axes the batch rows are split over) is set by the
+    train step that computes with the layout."""
+
+    def __init__(self, cfg, mesh):
+        ax = mesh_axes(mesh)
+        tp = ax.tp
+        heads_div = tp <= 1 or cfg.n_heads == 0 or cfg.n_heads % tp == 0
+        kv_div = tp <= 1 or cfg.n_kv_heads == 0 or cfg.n_kv_heads % tp == 0
+        batch = ax.batch or None
+        model = ax.model
+        if getattr(cfg, "dp_over_model", False) and model:
+            # batch takes the model axis too; nothing else shards over it
+            batch = ax.batch + (model,)
+            model = None
+            heads_div = True  # suppress the SP fallback specs below
+        specs = {}
+        if getattr(cfg, "seq_shard_resid", False) and model:
+            specs["resid"] = P(batch, model, None)
+        else:
+            specs["resid"] = P(batch, None, None)
+        if heads_div:
+            specs["attn_q"] = P(batch, None, model, None)
+            specs["attn_kv"] = P(batch, None, model if kv_div else None,
+                                 None)
+            specs["attn_q_local"] = specs["attn_q"]
+            specs["attn_kv_local"] = specs["attn_kv"]
+        else:
+            if cfg.seq_shard_attn:
+                # global attention: shard the q sequence dim (SP); kv
+                # replicated
+                specs["attn_q"] = P(batch, model, None, None)
+            else:
+                specs["attn_q"] = P(batch, None, None, None)
+            specs["attn_kv"] = P(batch, None, None, None)
+            # local attention: heads replicated fallback
+            specs["attn_q_local"] = P(batch, None, None, None)
+            specs["attn_kv_local"] = P(batch, None, None, None)
+        d_div = tp <= 1 or cfg.d_model % tp == 0
+        specs["moe_in"] = P(batch, None, model if d_div else None)
+        self.cfg, self.mesh, self.specs = cfg, mesh, specs
+        self.tp_axis = model if model and tp > 1 else None
+        self.tp = tp if self.tp_axis else 1
+        self.seq_resid = self.tp_axis is not None and \
+            specs["resid"][1] is not None
+        self.seq_attn = self.tp_axis is not None and \
+            specs["attn_q"][1] is not None
+        self.batch_axes = tuple(entry_axes(specs["resid"][0]))
+        self._pspecs = None
+
+    def group(self, axis):
+        """The process group of mesh axis `axis` (None: no axis)."""
+        return None if axis is None else self.mesh.get_group(axis)
+
+    def coord(self, axis) -> int:
+        """This rank's coordinate on mesh axis `axis` (0 for None)."""
+        if axis is None:
+            return 0
+        names = tuple(self.mesh.mesh_dim_names)
+        return self.mesh.get_coordinate()[names.index(axis)]
+
+    def param_spec(self, name: str) -> tuple:
+        """The spec of parameter leaf `name` (``/``-joined, stacked
+        layout) under the partition rules."""
+        if self._pspecs is None:
+            from ..state import abstract_params
+            self._pspecs = {n: sh.spec for n, sh in leaf_paths(param_specs(
+                abstract_params(self.cfg), self.mesh))}
+        return self._pspecs[name]
+
+
+def act_constrainer(cfg, mesh) -> ActLayout:
+    return ActLayout(cfg, mesh)
 
 
 def _size(mesh, axes) -> int:

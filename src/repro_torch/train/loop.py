@@ -9,9 +9,12 @@ checkpointable data — the split-process discipline as code structure.
 ``device`` (``None`` → CUDA) names the card. Without a ``mesh`` one device
 holds the whole state. With one (``launch.mesh``: one process per rank),
 every state leaf is a ``DTensor`` placed by the reference's partition
-rules (``core.split_state.state_shardings``), each rank keeps its rows of
-the batch, the step computes the one-device function
-(``train.steps._sharded_step``), and each rank saves the ranges it owns
+rules (``core.split_state.state_shardings``), the Trainer installs the
+reference's activation layout (``set_constrainer(act_constrainer(cfg,
+mesh))``; it never sets the exec mesh, as the reference's Trainer does
+not), each rank keeps its rows of the batch, the step computes the
+one-device function with that layout on the local shards
+(``train.steps._layout_step``), and each rank saves the ranges it owns
 into the one manifest (``CheckpointManager(group=)``), so a checkpoint of
 one mesh restores onto any other.
 """
@@ -33,8 +36,10 @@ from ..core.storage import TieredStore, default_store
 from ..data.pipeline import DataState, SyntheticPipeline
 from ..devices import resolve_device
 from ..models import Model
+from ..models.model import set_constrainer
 from ..optim import make_optimizer
-from ..sharding.partition import batch_spec, distribute_tree
+from ..sharding.partition import (act_constrainer, batch_spec,
+                                  distribute_tree)
 from .steps import make_train_step
 
 log = logging.getLogger("repro_torch.train")
@@ -94,12 +99,17 @@ class Trainer:
             rng = bs.local_range(shape)
             rows, batch_axes = (rng.start[0], rng.stop[0]), \
                 bs.dim_axes(2)[0]
+            layout = act_constrainer(model_cfg, mesh)
+            layout.batch_axes = batch_axes
+            set_constrainer(layout)
             if dist.get_world_size() > 1:
                 # the checkpoint's control messages ride their own gloo
                 # group (made here, in the same order on every rank), so an
                 # async save's persist thread never issues collectives on
                 # the group the step uses
                 group = dist.new_group(backend="gloo")
+        else:
+            set_constrainer(None)
         self.pipeline = SyntheticPipeline(model_cfg, batch=tcfg.batch,
                                           seq_len=tcfg.seq_len,
                                           device=self.device, rows=rows)

@@ -2,14 +2,11 @@
 from __future__ import annotations
 
 import contextlib
-import logging
 import math
 import os
 
 from ..core.split_state import leaf_paths, tree_unflatten
 from ..optim import global_norm, lr_schedule
-
-log = logging.getLogger("repro_torch.train")
 
 
 CUBLAS_WORKSPACE = ":4096:8"     # the CUBLAS_WORKSPACE_CONFIG training needs
@@ -62,7 +59,8 @@ def make_train_step(model, optimizer, *, lr_fn=None, grad_accum: int = 1,
     With `shardings` (``core.split_state.state_shardings``) the state is a
     tree of ``DTensor``s on that mesh and `batch` is this rank's rows, the
     batch dim sharded over the mesh axes `batch_axes`; the step computes
-    the one-device step's function (``_sharded_step``).
+    the one-device step's function with the reference's layout
+    (``_layout_step``).
     """
     import torch
     lr_fn = lr_fn or lr_schedule
@@ -79,11 +77,11 @@ def make_train_step(model, optimizer, *, lr_fn=None, grad_accum: int = 1,
                 allow_unused=True, materialize_grads=True)
         return loss.detach(), metrics, tree_unflatten(params, list(grads))
 
-    def loss_and_grads(params, batch, scale=None):
-        """(loss, metrics, grads) of `batch` (of `scale` · loss, where
-        given) over plain parameter tensors."""
+    def loss_and_grads(params, batch, vg=value_and_grad):
+        """(loss, metrics, grads) of `batch` over plain parameter tensors
+        (`vg`: one microbatch's)."""
         if grad_accum == 1:
-            return value_and_grad(params, batch, scale)
+            return vg(params, batch, None)
         adt = getattr(torch, accum_dtype) if accum_dtype else torch.float32
         micro = {k: v.reshape((grad_accum, v.shape[0] // grad_accum)
                               + tuple(v.shape[1:]))
@@ -92,8 +90,8 @@ def make_train_step(model, optimizer, *, lr_fn=None, grad_accum: int = 1,
                for n, p in leaf_paths(params)}
         losses, per = [], []
         for i in range(grad_accum):
-            l_, m_, g = value_and_grad(
-                params, {k: v[i] for k, v in micro.items()}, scale)
+            l_, m_, g = vg(params, {k: v[i] for k, v in micro.items()},
+                           None)
             for n, gg in leaf_paths(g):
                 acc[n].add_(gg.to(adt))
             losses.append(l_)
@@ -106,8 +104,8 @@ def make_train_step(model, optimizer, *, lr_fn=None, grad_accum: int = 1,
         return torch.stack(losses).mean(), metrics, grads
 
     if shardings is not None:
-        return _sharded_step(model, optimizer, lr_fn, loss_and_grads,
-                             shardings, tuple(batch_axes))
+        return _layout_step(model, optimizer, lr_fn, loss_and_grads,
+                            shardings, tuple(batch_axes))
 
     def train_step(state, batch):
         params = state["params"]
@@ -136,156 +134,109 @@ def _loss_weight(cfg, batch):
     return torch.tensor(float(b * (s - 1)), device=batch["tokens"].device)
 
 
-_GATHER_ROWS = None
-_EP_LOGGED = False
+def _layout_step(model, optimizer, lr_fn, loss_and_grads, shardings,
+                 batch_axes):
+    """The train step on a mesh, computing the one-device step's function
+    with the reference's activation layout (``models.parallel``):
 
-
-def _gather_rows(x, group):
-    """All-gather `x` along dim 0 over `group`, differentiable: the
-    backward sums every rank's gradient of the gathered rows and keeps
-    this rank's (an all-reduce, which gloo and NCCL both have)."""
-    global _GATHER_ROWS
-    if _GATHER_ROWS is None:
-        import torch
-        import torch.distributed as dist
-
-        class GatherRows(torch.autograd.Function):
-            @staticmethod
-            def forward(ctx, x, group):
-                parts = [torch.empty_like(x)
-                         for _ in range(dist.get_world_size(group))]
-                dist.all_gather(parts, x.contiguous(), group=group)
-                ctx.group, ctx.rows = group, x.shape[0]
-                ctx.rank = dist.get_rank(group)
-                return torch.cat(parts)
-
-            @staticmethod
-            def backward(ctx, g):
-                g = g.contiguous().clone()
-                dist.all_reduce(g, group=ctx.group)
-                lo = ctx.rank * ctx.rows
-                return g[lo:lo + ctx.rows], None
-
-        _GATHER_ROWS = GatherRows
-    return _GATHER_ROWS.apply(x, group)
-
-
-def _sharded_step(model, optimizer, lr_fn, loss_and_grads, shardings,
-                  batch_axes):
-    """The train step on a mesh, computing the one-device step's function:
-
-    1. each rank gathers the parameters to full tensors
-       (``DTensor.full_tensor``);
-    2. runs the one-device ``Model`` on its own batch rows, its loss
-       scaled by its share of the global loss's count (equal shares of an
-       LM batch; an encoder's masked frames may differ by rank);
-    3. the gradients are summed over the batch axes and brought to each
-       leaf's placements (``redistribute``: a reduce-scatter where the
-       leaf is sharded);
+    1. the parameters go in as each rank's local shards (``to_local``);
+       each layer all-gathers its own FSDP-sharded leaves just before it
+       runs and keeps its TP dims split. Layers run under
+       ``torch.utils.checkpoint``: autograd does not keep the gathered
+       weights, the backward gathers each layer's again;
+    2. each rank's loss (of its batch rows, equal on every rank of the TP
+       axis) is weighted by its share of the global loss's count over the
+       batch axes (equal shares of an LM batch; an encoder's masked frames
+       may differ by rank) and by 1 / its replicas over the other axes,
+       and the shares are summed over every mesh axis (``reduce_from``)
+       into the global loss and metrics that each rank reports;
+    3. the gradients come out of the collectives' backward as the local
+       shards' gradients, summed over the ranks in f32 and rounded once;
     4. the optimizer updates the local shards (``ShardLayout`` supplies
        the reductions across shards: the clip's global norm, Adafactor's
        means and RMS).
 
-    A MoE layer groups ``min(4096, T)`` tokens of the GLOBAL batch (its
-    capacity depends on the group's size): where this rank's rows do not
-    make whole groups, the layer gathers the batch's tokens over the batch
-    axes (``models.moe.token_gather``), routes the groups the one-device
-    step forms, and keeps its own rows; the gradient flows back through
-    the gather."""
+    No rank ever holds the whole parameter tree. A MoE layer routes the
+    groups the one-device step forms (``models.parallel._moe``)."""
     import torch
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor, Partial, Replicate
 
-    from ..models.moe import token_gather
-    from ..sharding.partition import ShardLayout
     from ..core.split_state import map_leaves
+    from ..models import parallel
+    from ..models.model import _exec
+    from ..sharding import collectives as C
+    from ..sharding.partition import ShardLayout, act_constrainer
 
-    global _EP_LOGGED
     p_shard = dict(leaf_paths(shardings["params"]))
     mesh = next(iter(p_shard.values())).mesh
     names = tuple(mesh.mesh_dim_names)
+    lay = act_constrainer(model.cfg, mesh)
+    lay.batch_axes = batch_axes
+    n_batch = math.prod(mesh.size(names.index(a)) for a in batch_axes)
+    replicas = mesh.size() // n_batch
+    groups = [mesh.get_group(a) for a in names]
     layout = None
-    partial = tuple(Partial() if a in batch_axes else Replicate()
-                    for a in names)
-    groups = [mesh.get_group(a) for a in batch_axes]
-    cfg = model.cfg
-    if cfg.moe is not None and cfg.moe_impl == "shard_map" and \
-            not _EP_LOGGED:
-        _EP_LOGGED = True
-        log.info("moe_impl=shard_map: expert-parallel compute is not "
-                 "ported yet; the step runs moe_apply (the same function)")
 
-    def psum_batch(t):
+    def share_sum(t):
         for g in groups:
-            dist.all_reduce(t, group=g)
+            t = C.reduce_from(t, g)
         return t
 
-    def gather(x):
-        # minor axis first, so the rows come out in mixed-radix order
-        full = x
-        for g in reversed(groups):
-            full = _gather_rows(full, g)
-        lo = x.shape[0] * _batch_index(mesh, batch_axes)
-        return full, (lambda y: y[lo:lo + x.shape[0]])
+    def value_and_grad(params, batch, _):
+        leaves = leaf_paths(params)
+        live = [p.detach().requires_grad_() for _, p in leaves]
+        with torch.enable_grad():
+            loss, metrics = parallel.loss(
+                model, tree_unflatten(params, live), batch, lay, _exec)
+            keys = sorted(k for k in metrics if k != "loss")
+            vals = torch.stack([loss.float()] + [metrics[k].float()
+                                                 for k in keys])
+            tot = share_sum(vals * (scale(batch) / replicas))
+            grads = torch.autograd.grad(tot[0], live, allow_unused=True,
+                                        materialize_grads=True)
+        tot = tot.detach()
+        metrics = {"loss": tot[0], **dict(zip(keys, tot[1:]))}
+        return tot[0], metrics, tree_unflatten(params, list(grads))
+
+    def scale(batch):
+        w = _loss_weight(model.cfg, batch)
+        total = w.clone()
+        for a in batch_axes:
+            dist.all_reduce(total, group=mesh.get_group(a))
+        return w / total
 
     def train_step(state, batch):
         nonlocal layout
         params = state["params"]
         step = state["step"].to_local()
-        dev = step.device
         if layout is None:
             layout = ShardLayout.of(shardings["params"], params)
-        with deterministic(dev):
-            full = map_leaves(lambda d: d.full_tensor(), params)
-            w = _loss_weight(cfg, batch)
-            scale = w / psum_batch(w.clone())
-            b = next(iter(batch.values())).shape
-            n_batch = math.prod(mesh.size(names.index(a))
-                                for a in batch_axes)
-            t_local = b[0] * b[1]
-            ctx = contextlib.nullcontext()
-            if cfg.moe is not None and groups and \
-                    t_local % min(4096, t_local * n_batch):
-                ctx = token_gather(gather)
-            with ctx:
-                _, metrics, grads = loss_and_grads(full, batch, scale)
-            del full
-            # summed in f32, rounded once to the leaf's dtype
-            grads = {n: DTensor.from_local(g.float(), mesh, partial,
-                                           run_check=False)
-                     .redistribute(mesh, p_shard[n].placements).to_local()
-                     .to(g.dtype) for n, g in leaf_paths(grads)}
-            grads = tree_unflatten(params, [grads[n] for n, _ in
-                                            leaf_paths(params)])
-            keys = sorted(metrics)
-            vals = psum_batch(torch.stack([metrics[k].float() for k in keys])
-                              * scale)
-            metrics = dict(zip(keys, vals))
+        with deterministic(step.device):
+            local = map_leaves(_local, params)
+            _, metrics, grads = loss_and_grads(local, batch,
+                                               value_and_grad)
             lr = lr_fn(step)
             grad_norm = global_norm(grads, layout)
             optimizer.update(grads, map_leaves(_local, state["opt"]),
-                             map_leaves(_local, params), lr, layout)
+                             local, lr, layout)
             step.add_(1)
         metrics["lr"] = lr
         metrics["grad_norm"] = grad_norm
         return state, metrics
 
+    def grads(state, batch):
+        """(loss, metrics, the local shards' gradients) of `batch` at
+        `state`, which stays as it is."""
+        with deterministic(state["step"].to_local().device):
+            return loss_and_grads(map_leaves(_local, state["params"]),
+                                  batch, value_and_grad)
+
+    train_step.grads = grads
     return train_step
 
 
 def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
-
-
-def _batch_index(mesh, axes) -> int:
-    """This rank's mixed-radix position over mesh `axes` (major first)."""
-    names = tuple(mesh.mesh_dim_names)
-    coord = mesh.get_coordinate()
-    i = 0
-    for a in axes:
-        d = names.index(a)
-        i = i * mesh.size(d) + coord[d]
-    return i
 
 
 def make_serve_fns(model):

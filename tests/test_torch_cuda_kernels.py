@@ -272,6 +272,38 @@ def test_flash_attention_bf16_edges_match_plain(cuda, block_q, B, Sq, Sk, H,
                                atol=3e-2, rtol=0)
 
 
+# (B, Sq, Sk, H, K, D, causal, window, softcap, q_offset): one rank's
+# query rows of a longer sequence, at an offset of 0, on a 64-key tile
+# edge and beside it
+ATTN_OFFSETS = [
+    *[(1, 256, 1024, 4, 2, 128, True, 0, 0.0, o) for o in (0, 512, 511,
+                                                           513)],
+    *[(1, 200, 1024, 4, 1, 256, True, 128, 0.0, o) for o in (448, 449)],
+    (1, 130, 700, 4, 1, 64, False, 65, 0.0, 300),
+    (2, 256, 1024, 4, 2, 128, True, 0, 50.0, 768),
+]
+
+
+@pytest.mark.parametrize("dtype,tol,block_q", [
+    (torch.float32, 2e-5, 0), *[(torch.bfloat16, 3e-2, bq)
+                                for bq in (0, 64, 128)]])
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D,causal,window,softcap,q_offset",
+                         ATTN_OFFSETS)
+def test_flash_attention_q_offset_matches_plain(cuda, dtype, tol, block_q, B,
+                                                Sq, Sk, H, K, D, causal,
+                                                window, softcap, q_offset):
+    q, k, v = (t.to(dtype) for t in _attn_inputs(cuda, B, Sq, Sk, H, K, D,
+                                                  Sq + Sk + q_offset))
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, block_q=block_q, **kw)
+    assert fa.launches == before + 1
+    torch.testing.assert_close(got.float(),
+                               fa.flash_attention_plain(q, k, v, **kw).float(),
+                               atol=tol, rtol=0)
+
+
 @pytest.mark.parametrize("window", [0, 512])
 def test_flash_attention_bf16_is_deterministic(cuda, window):
     """Two launches on the same inputs are bit-equal (no atomics: the
