@@ -25,6 +25,10 @@
     python3 chip_smoke.py --parallel-only  # build, K7/K8 parity, the zoo
                                          #   phase, then the parallel
                                          #   phase (30 GB of disk)
+    python3 chip_smoke.py --compile-only # build, K7/K8 parity, the
+                                         #   compile phase alone (its dry
+                                         #   run then has no measured
+                                         #   peaks to meet)
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
@@ -157,7 +161,25 @@
    K4, K7 and K8 launched in every rank; then ``moe_apply_shard_map``
    over four ranks against ``moe_apply``'s routed experts on one. One
    ``{"parallel": ...}`` line.
-11. Prints one JSON line of per-kernel numbers (CUDA-event times at each
+11. The compile phase (``compile``), last: the dry run
+   (``launch.dryrun.run_cell`` on fake tensors over a fake process group)
+   traces each rank of the parallel phase's cell, whose predicted step
+   peak must be within 25% of the rank's measured ``peak_device_bytes``
+   and whose state bytes must equal the rank's local state bytes (each
+   part printed beside the measured one), and gemma3-1b's train_4k,
+   prefill_32k and decode_32k on (16, 16), whose records are printed;
+   four ranks on the card serve full-width gemma3-1b (``MAIN_LAYERS``) on
+   the sharded layout on (2,2) and (1,4) (``--serve-rank``: four prompts
+   of 1,024 tokens, eight decode steps, the one-device run's tokens
+   forced), every step's logits within ``MESH_SERVE_RTOL`` of the
+   one-device run's; the one-device prefill exported into an empty
+   ``core.aot_cache.AotCache`` (a miss) and loaded in a fresh process
+   (``--aot-load``: a hit, outputs bit-equal to the eager prefill's, K7
+   and K8 launched by the loaded program); the host µs of a K7 call
+   through the registered operator against the direct wrapper, and
+   serving's decode tokens/s both ways. One ``{"compile": ...}`` line;
+   the kernel rows carry ``launches_compile``.
+12. Prints one JSON line of per-kernel numbers (CUDA-event times at each
    path's largest shapes, bounds from the bytes or operations each kernel
    needs, the plain version's and a library call's time; K7 also at every
    shape of ``K7_SHAPES`` with the L2 cold, each route forced; K8 also at the
@@ -3143,6 +3165,8 @@ def parallel_rank(root: Path) -> int:
     out["launches_restore"] = read_counts()
     out["local_param_bytes"] = sum(
         x.to_local().nbytes for x in _leaves(t.state["params"]))
+    out["local_state_bytes"] = sum(
+        x.to_local().nbytes for x in _leaves(t.state))
     out["peak_restore_bytes"] = torch.cuda.max_memory_allocated(dev)
     # the step's peak device bytes by part: forward and backward (up to
     # the gradient norm), the norm, the optimizer's update
@@ -3216,7 +3240,6 @@ def parallel(dev, card: str, zoo_stats: dict) -> dict:
     cfg = get_config(ZOO_ARCH)
     out = {"arch": cfg.arch_id, "n_layers": ZOO_LAYERS, "mesh": list(PAR_MESH),
            "world": PAR_WORLD, "card": card, "step": PAR_STEP}
-    procs = []
     try:
         t0 = time.monotonic()
         out["q_offset"] = q_offset_parity(dev)
@@ -3229,31 +3252,9 @@ def parallel(dev, card: str, zoo_stats: dict) -> dict:
         out["run_a"] = ref
         torch.cuda.empty_cache()
         out["parent_device_bytes"] = torch.cuda.memory_allocated(dev)
-        env = {**os.environ, "WORLD_SIZE": str(PAR_WORLD), "LOCAL_RANK": "0",
-               "REPRO_CKPT_KEEPALIVE_S": "120",
-               "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 4)
-                                          // PAR_WORLD))}
         t0 = time.monotonic()
-        logs = [open(root / f"par_rank{r}.log", "w+")
-                for r in range(PAR_WORLD)]
-        outs = [open(root / f"par_rank{r}.out", "w+")
-                for r in range(PAR_WORLD)]
-        procs = [subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-rank",
-             str(root)], stdout=outs[r], stderr=logs[r],
-            env={**env, "RANK": str(r)}) for r in range(PAR_WORLD)]
-        ranks = []
-        for r, p in enumerate(procs):
-            p.wait(timeout=900)
-            logs[r].seek(0)
-            outs[r].seek(0)
-            err, text = logs[r].read(), outs[r].read()
-            if p.returncode:
-                fail(f"parallel rank {r} exited {p.returncode}; its stderr "
-                     f"ends:\n{err[-4000:]}")
-            ranks.append(json.loads(next(
-                line for line in text.splitlines()
-                if line.startswith("RESULT::"))[len("RESULT::"):]))
+        ranks = _spawn_ranks("--parallel-rank", root, PAR_WORLD, 900,
+                             {"REPRO_CKPT_KEEPALIVE_S": "120"})
         out["p1_p2_wall_s"] = time.monotonic() - t0
         out["ranks"] = ranks
         (ROOT / "chiprun_out" / "chip_smoke_parallel_ranks.json").write_text(
@@ -3290,9 +3291,6 @@ def parallel(dev, card: str, zoo_stats: dict) -> dict:
             "restore": _sum_counts(*[r["launches_restore"] for r in ranks]),
             "step": _sum_counts(*[r["launches_step"] for r in ranks])}
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
     say(f"parallel ({card}): {PAR_WORLD} ranks on one card, mesh "
@@ -3304,6 +3302,492 @@ def parallel(dev, card: str, zoo_stats: dict) -> dict:
         f"{[r['grad_norm_rel_diff'] for r in ranks]}; EP "
         f"{json.dumps(ep)}")
     return out
+
+# ---------------------------------------------------------------------------
+# phase 12 — the compile-side tools: the dry run against the card, serving
+# on the sharded layout, the AOT program cache, the registered ops' cost
+# ---------------------------------------------------------------------------
+
+# the parallel phase's cell as the dry run traces it: llama4-scout at its
+# ZOO_LAYERS, the preset, the training batch over PAR_MESH, no exec mesh
+# (the Trainer sets none)
+PEAK_RTOL = 0.25               # predicted step peak vs measured, a rank
+COMPILE_SHAPES = ("train_4k", "prefill_32k", "decode_32k")  # gemma3-1b
+# serving on the layout: gemma3-1b at full width, MAIN_LAYERS, four prompts
+# of 1,024 tokens and eight decode steps, the one-device run's tokens
+# forced, on each mesh over four ranks sharing the card
+MESH_SERVE = dict(batch=4, prompt_len=1024, steps=8, seed=5)
+MESH_SERVE_MESHES = ((2, 2), (1, 4))
+MESH_SERVE_CACHE = MESH_SERVE["prompt_len"] + MESH_SERVE["steps"]
+# a logit's difference from the one-device run's, over the largest
+# reference logit: bf16 activations whose row-parallel partial sums are
+# added across ranks in f32 and rounded once (PERF.md §6)
+MESH_SERVE_RTOL = 2e-2
+AOT_TAG = "gemma3-1b-prefill"
+OP_COST_CALLS = 5000           # K7 calls timed a round (host µs a call)
+OP_COST_ROUNDS = 10            # alternating rounds of the three ways
+# C4's serving runs: the serving phase's traffic with 32 generated tokens
+# of 64 (30 runs of 64 took 98 s of the script's limit)
+OP_COST_SERVE = dict(SERVE, gen_len=32)
+
+
+def _gemma_serve_model():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    return Model(dataclasses.replace(get_config("gemma3-1b"),
+                                     n_layers=MAIN_LAYERS))
+
+
+def _serve_tokens(dev, vocab: int):
+    import torch
+    g = torch.Generator().manual_seed(MESH_SERVE["seed"])
+    return torch.randint(0, vocab, (MESH_SERVE["batch"],
+                                    MESH_SERVE["prompt_len"]),
+                         generator=g).to(dev)
+
+
+def mesh_serve_reference(dev, root: Path) -> dict:
+    """The one-device serve the mesh ranks are held to: prefill and
+    ``MESH_SERVE["steps"]`` decode steps of greedy tokens; writes tokens,
+    logits and next tokens to ``root/mesh_serve_ref.pt``."""
+    import torch
+    model = _gemma_serve_model()
+    params = model.init(seed=MESH_SERVE["seed"], device=dev)
+    tokens = _serve_tokens(dev, model.cfg.vocab_size)
+    t0 = time.monotonic()
+    with torch.no_grad():
+        logits, cache = model.prefill(params, tokens,
+                                      cache_len=MESH_SERVE_CACHE)
+        ref = {"tokens": tokens.cpu(), "logits": [logits.cpu()],
+               "next": [logits.argmax(-1).int().cpu()]}
+        for _ in range(MESH_SERVE["steps"]):
+            logits, cache = model.decode_step(params, cache,
+                                              ref["next"][-1].to(dev))
+            ref["logits"].append(logits.cpu())
+            ref["next"].append(logits.argmax(-1).int().cpu())
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    torch.save(ref, root / "mesh_serve_ref.pt")
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"seconds": seconds}
+
+
+def _local_tree(tree, specs: dict, prefix: str = ""):
+    """This rank's block of every leaf of `tree` under `specs` (leaf name →
+    ``NamedSharding``), each a contiguous copy."""
+    out = {}
+    for k, t in tree.items():
+        name = f"{prefix}/{k}" if prefix else k
+        if isinstance(t, dict):
+            out[k] = _local_tree(t, specs, name)
+            continue
+        rng = specs[name].local_range(tuple(t.shape))
+        out[k] = t[tuple(slice(a, b) for a, b in
+                         zip(rng.start, rng.stop))].contiguous()
+    return out
+
+
+def serve_rank(root: Path) -> int:
+    """One of the four ranks serving on the sharded layout (``--serve-
+    rank``, spawned by ``mesh_serving``), a process on the one card in a
+    gloo group: for each of ``MESH_SERVE_MESHES``, its shards of the
+    seeded gemma3-1b params, ``parallel.prefill`` of its rows and
+    ``MESH_SERVE["steps"]`` ``parallel.decode_step``s with the one-device
+    run's tokens forced; each step's logits against the one-device run's
+    rows. Prints one RESULT line."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(root / "rendezvous_serve"), world),
+        rank=rank, world_size=world)
+    from repro_torch.core.split_state import leaf_paths
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import parallel
+    from repro_torch.sharding.partition import param_specs
+    ref = torch.load(root / "mesh_serve_ref.pt")
+    model = _gemma_serve_model()
+    full = model.init(seed=MESH_SERVE["seed"], device=dev)
+    B = MESH_SERVE["batch"]
+    out = {"rank": rank, "meshes": []}
+    for shape in MESH_SERVE_MESHES:
+        mesh = make_host_mesh(shape, ("data", "model"), device=dev)
+        params = _local_tree(full, dict(leaf_paths(param_specs(
+            model.abstract_params(), mesh))))
+        lay = parallel.serve_layout(model.cfg, mesh, B, MESH_SERVE_CACHE)
+        lo, hi = parallel.batch_rows(lay, B)
+        errs = []
+
+        def check(logits, i):
+            want = ref["logits"][i][lo:hi].to(dev)
+            errs.append([(logits - want).abs().max().item(),
+                         want.abs().max().item()])
+
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with torch.no_grad():
+            logits, cache = parallel.prefill(
+                model, params, ref["tokens"][lo:hi].to(dev), lay,
+                cache_len=MESH_SERVE_CACHE)
+            torch.cuda.synchronize()
+            prefill_s = time.monotonic() - t0
+            check(logits, 0)
+            t1 = time.monotonic()
+            for i in range(MESH_SERVE["steps"]):
+                logits, cache = parallel.decode_step(
+                    model, params, cache, ref["next"][i][lo:hi].to(dev), lay)
+                check(logits, i + 1)
+        torch.cuda.synchronize()
+        decode_s = time.monotonic() - t1
+        out["meshes"].append({
+            "mesh": list(shape), "rows": [lo, hi], "prefill_s": prefill_s,
+            "decode_s": decode_s, "decode_tok_per_s":
+            (hi - lo) * MESH_SERVE["steps"] / decode_s,
+            "max_abs_err": [e[0] for e in errs],
+            "rel_err": max(e[0] / e[1] for e in errs),
+            "launches": read_counts(),
+            "local_param_bytes": sum(t.nbytes for t in _leaves(params))})
+        del params, cache
+        torch.cuda.empty_cache()
+    print("RESULT::" + json.dumps(out), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(flag: str, root: Path, world: int, timeout: int,
+                 env: dict | None = None) -> list:
+    """`world` processes of ``chip_smoke.py flag root`` on the card (`env`
+    added to theirs), stdout and stderr in files under `root` (a rank
+    blocked on a full pipe would stall its peers); their RESULT lines (a
+    failing rank's stderr fails the script)."""
+    env = {**os.environ, "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+           "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 4) // world)),
+           **(env or {})}
+    logs = [open(root / f"{flag[2:]}{r}.log", "w+") for r in range(world)]
+    outs = [open(root / f"{flag[2:]}{r}.out", "w+") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), flag, str(root)],
+        stdout=outs[r], stderr=logs[r], env={**env, "RANK": str(r)})
+        for r in range(world)]
+    try:
+        res = []
+        for r, p in enumerate(procs):
+            p.wait(timeout=timeout)
+            logs[r].seek(0)
+            outs[r].seek(0)
+            err, text = logs[r].read(), outs[r].read()
+            if p.returncode:
+                fail(f"{flag} rank {r} exited {p.returncode}; its stderr "
+                     f"ends:\n{err[-4000:]}")
+            res.append(json.loads(next(
+                line for line in text.splitlines()
+                if line.startswith("RESULT::"))[len("RESULT::"):]))
+        return res
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+
+
+def mesh_serving(dev, root: Path) -> dict:
+    """Serving on the sharded layout: the one-device reference here, then
+    four ranks (``--serve-rank``) on each mesh; every step's logits within
+    ``MESH_SERVE_RTOL`` of the reference's largest, K7 and K8 launched in
+    every rank's prefill."""
+    out = {"reference": mesh_serve_reference(dev, root), **MESH_SERVE,
+           "meshes": [list(m) for m in MESH_SERVE_MESHES],
+           "rtol": MESH_SERVE_RTOL}
+    t0 = time.monotonic()
+    ranks = _spawn_ranks("--serve-rank", root, PAR_WORLD, 600)
+    out["ranks_wall_s"] = time.monotonic() - t0
+    out["ranks"] = ranks
+    for r in ranks:
+        for m in r["meshes"]:
+            if not m["rel_err"] <= MESH_SERVE_RTOL:
+                fail(f"mesh serving {m['mesh']} rank {r['rank']}: logits "
+                     f"{m['rel_err']} of the largest from the one-device "
+                     f"run's (bound {MESH_SERVE_RTOL}): {m['max_abs_err']}")
+            for k in ("rmsnorm", "flash_attention"):
+                if m["launches"][k] <= 0:
+                    fail(f"mesh serving {m['mesh']} rank {r['rank']}: "
+                         f"kernel {k} was not launched")
+    out["rel_err"] = {str(m): max(x["rel_err"] for r in ranks
+                                  for x in r["meshes"] if x["mesh"] == m)
+                      for m in out["meshes"]}
+    return out
+
+
+def _aot_prefill(dev):
+    """(prefill function, params, tokens) of the AOT check: gemma3-1b at
+    full width, MAIN_LAYERS, seeded, on the card."""
+    model = _gemma_serve_model()
+    params = model.init(seed=MESH_SERVE["seed"], device=dev)
+    tokens = _serve_tokens(dev, model.cfg.vocab_size)
+
+    def prefill(p, t):
+        return model.prefill(p, t, cache_len=MESH_SERVE_CACHE)
+
+    return prefill, params, tokens
+
+
+def aot_load(root: Path) -> int:
+    """The AOT cache's second bring-up (``--aot-load``, a fresh process):
+    load the exported prefill (must hit), run it, compare it with the
+    eager prefill here and the parent's; read K7/K8's launches in the
+    program's run. Prints one RESULT line."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.aot_cache import AotCache
+    from repro_torch.core.split_state import leaf_paths
+    dev = torch.device("cuda")
+    t0 = time.monotonic()
+    prefill, params, tokens = _aot_prefill(dev)
+    cache = AotCache(root / "aot")
+    t1 = time.monotonic()
+    program, source = cache.load_or_compile(prefill, (params, tokens),
+                                            tag=AOT_TAG)
+    load_s = time.monotonic() - t1
+    reset_counts()
+    with torch.no_grad():
+        got = program(params, tokens)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        want = prefill(params, tokens)
+    parent = torch.load(root / "aot_eager.pt")
+    equal = torch.equal(got[0], want[0]) and all(
+        torch.equal(a, b) for (_, a), (_, b) in
+        zip(leaf_paths(got[1]), leaf_paths(want[1])))
+    print("RESULT::" + json.dumps({
+        "source": source, "load_s": load_s, "stats": cache.stats,
+        "setup_s": t1 - t0, "launches": launches,
+        "equal_eager": bool(equal),
+        "equal_parent": bool(torch.equal(got[0].cpu(), parent)),
+        "max_abs_err": (got[0] - want[0]).abs().max().item()}), flush=True)
+    return 0
+
+
+def aot_check(dev, root: Path) -> dict:
+    """Export gemma3-1b's one-device prefill into an empty ``AotCache`` (a
+    miss), then load it in a fresh process (``--aot-load``): a hit whose
+    outputs equal the eager prefill's, with K7 and K8 launched by the
+    loaded program."""
+    import torch
+
+    from repro_torch.core.aot_cache import AotCache
+    prefill, params, tokens = _aot_prefill(dev)
+    cache = AotCache(root / "aot")
+    t0 = time.monotonic()
+    _, source = cache.load_or_compile(prefill, (params, tokens), tag=AOT_TAG)
+    compile_s = time.monotonic() - t0
+    if source != "compile":
+        fail(f"AOT cache: an empty cache gave {source!r}")
+    with torch.no_grad():
+        torch.save(prefill(params, tokens)[0].cpu(), root / "aot_eager.pt")
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    p = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                        "--aot-load", str(root)], capture_output=True,
+                       text=True, timeout=600)
+    wall_s = time.monotonic() - t0
+    if p.returncode:
+        fail(f"AOT load process exited {p.returncode}: {p.stderr[-4000:]}")
+    res = json.loads(next(line for line in p.stdout.splitlines()
+                          if line.startswith("RESULT::"))[len("RESULT::"):])
+    out = {"compile_s": compile_s, "stats": cache.stats,
+           "bytes": sum(f.stat().st_size for f in (root / "aot").iterdir()),
+           "load_process_s": wall_s, **{f"load_{k}": v for k, v in
+                                        res.items()}}
+    if res["source"] != "cache":
+        fail(f"AOT cache: the fresh process did not hit: {res}")
+    if not (res["equal_eager"] and res["equal_parent"]):
+        fail(f"AOT cache: the loaded program's prefill differs from the "
+             f"eager one: {res}")
+    for k in ("rmsnorm", "flash_attention"):
+        if res["launches"][k] <= 0:
+            fail(f"AOT cache: the loaded program launched no {k}")
+    return out
+
+
+def _spread(xs) -> dict:
+    xs = sorted(xs)
+    n = len(xs)
+    med = xs[n // 2] if n % 2 else (xs[n // 2 - 1] + xs[n // 2]) / 2
+    return {"median": med, "min": xs[0], "max": xs[-1], "n": n}
+
+
+def op_cost(dev) -> dict:
+    """The registered operators' host cost, three ways, alternating in
+    ``OP_COST_ROUNDS`` rounds: "op" forces every K7 call through the
+    dispatcher (``rn.untraced`` false), "entry" is the model's entry as it
+    ships (``rn.rmsnorm``: the CUDA implementation without the dispatcher
+    on an untraced tensor), "direct" calls the kernels' wrappers with no
+    operator at all (the path before the operators). Host µs a K7 call
+    at the decode step's block-norm shape (8 rows of 1,152, bf16,
+    ``OP_COST_CALLS`` calls a round), and serving's decode tokens/s (one
+    serving run a way a round, ``OP_COST_SERVE``); medians with their min
+    and max."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.launch import serve
+    x = torch.randn((8, 1, 1152), device=dev).to(torch.bfloat16)
+    s = torch.randn((1152,), device=dev).to(torch.bfloat16)
+    rms = rn.op()
+    calls = {"op": lambda: rms(x, s, 1e-6), "entry": lambda: rn.rmsnorm(x, s),
+             "direct": lambda: rn.rmsnorm_fused(x, s)}
+    us = {k: [] for k in calls}
+    for _ in range(OP_COST_ROUNDS):
+        for k, fn in calls.items():
+            for _ in range(200):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(OP_COST_CALLS):
+                fn()
+            us[k].append((time.perf_counter() - t0) / OP_COST_CALLS * 1e6)
+            torch.cuda.synchronize()
+    out = {"k7_host_us": {k: _spread(v) for k, v in us.items()},
+           "k7_host_us_rounds": us}
+    root = ROOT / "build" / "chip_smoke_opcost"
+    saved = (rn.op, fa.op, rn.untraced)
+
+    def direct_fa(q, k, v, causal, window, softcap, scale, q_offset):
+        return fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  softcap=softcap, scale=scale,
+                                  q_offset=q_offset)
+
+    tok = {k: [] for k in calls}
+    try:
+        for i in range(OP_COST_ROUNDS):
+            for way in calls:
+                if way == "op":
+                    rn.untraced = lambda t: False
+                elif way == "direct":
+                    rn.op = lambda: (lambda a, b, eps: rn.rmsnorm_fused(
+                        a, b, eps=eps))
+                    fa.op = lambda: direct_fa
+                res = serve.run("gemma3-1b",
+                                workdir=str(root / f"{way}{i}"),
+                                device=dev, **OP_COST_SERVE)
+                rn.op, fa.op, rn.untraced = saved
+                tok[way].append(res["tok_per_s"])
+    finally:
+        rn.op, fa.op, rn.untraced = saved
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(Path("/dev/shm") / f"repro-bb-{os.getpid()}",
+                      ignore_errors=True)
+    out["decode_tok_per_s"] = {k: _spread(v) for k, v in tok.items()}
+    out["decode_tok_per_s_rounds"] = tok
+    return out
+
+
+def compile_phase(dev, card: str, par: dict | None) -> dict:
+    """Phase 12, the compile-side tools.
+
+    C1. The dry run (``launch.dryrun.run_cell``) traces each of the four
+        ranks of the parallel phase's cell on fake tensors; with `par`
+        (the parallel phase's record) each rank's predicted step peak must
+        be within ``PEAK_RTOL`` of its measured ``peak_device_bytes`` and
+        its state bytes equal the measured local state's (both printed by
+        part). Then gemma3-1b's ``COMPILE_SHAPES`` on (16, 16).
+    C2. Serving on the sharded layout (``mesh_serving``).
+    C3. The AOT program cache (``aot_check``).
+    C4. The registered operators' host cost (``op_cost``)."""
+    import torch
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.configs.presets import preset_overrides
+    from repro_torch.launch.dryrun import run_cell
+    root = ROOT / "build" / "chip_smoke_compile"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = {"card": card}
+    try:
+        t0 = time.monotonic()
+        cell = ShapeSpec("parallel_step", TRAIN["seq_len"], TRAIN["batch"],
+                         "train")
+        # the Trainer sets no exec mesh, so the preset's shard_map runs
+        # ``moe_apply``: the route that "gspmd" names
+        over = {"n_layers": ZOO_LAYERS, **preset_overrides(ZOO_ARCH),
+                "moe_impl": "gspmd"}
+        preds = [run_cell(ZOO_ARCH, None, "single", shape=cell,
+                          mesh_shape=PAR_MESH, overrides=over, rank=r)
+                 for r in range(PAR_WORLD)]
+        for rec in preds:
+            if rec["status"] != "ok":
+                fail(f"dry run of the parallel cell, rank {rec['rank']}: "
+                     f"{rec.get('error')}\n{rec.get('traceback', '')}")
+        cmp = []
+        for rec in preds:
+            mem = rec["memory"]
+            row = {"rank": rec["rank"], "trace_s": rec["trace_s"],
+                   "predicted_peak": mem["peak_bytes_est"],
+                   "predicted_by_part": mem["peak_by_part"],
+                   "predicted_state_bytes": mem["state_bytes"],
+                   "predicted_argument_bytes": mem["argument_bytes"]}
+            if par is not None:
+                meas = par["ranks"][rec["rank"]]
+                row.update(measured_peak=meas["peak_device_bytes"],
+                           measured_by_part=meas["peak_by_part"],
+                           measured_state_bytes=meas["local_state_bytes"])
+                row["peak_rel"] = (mem["peak_bytes_est"]
+                                   - meas["peak_device_bytes"]) \
+                    / meas["peak_device_bytes"]
+            cmp.append(row)
+        out["parallel_cell"] = cmp
+        say(f"compile C1: the parallel cell's prediction against the card "
+            f"({card}): {json.dumps(cmp)}")
+        for row in cmp:
+            if par is None:
+                continue
+            if not abs(row["peak_rel"]) <= PEAK_RTOL:
+                fail(f"dry run: rank {row['rank']}'s predicted step peak "
+                     f"{row['predicted_peak']} is {row['peak_rel']:+.3f} "
+                     f"from the measured {row['measured_peak']}")
+            if row["predicted_state_bytes"] != row["measured_state_bytes"]:
+                fail(f"dry run: rank {row['rank']}'s state bytes "
+                     f"{row['predicted_state_bytes']} != measured "
+                     f"{row['measured_state_bytes']}")
+        out["gemma3"] = {}
+        for name in COMPILE_SHAPES:
+            rec = run_cell("gemma3-1b", name, "single")
+            if rec["status"] != "ok":
+                fail(f"dry run gemma3-1b × {name}: {rec.get('error')}\n"
+                     f"{rec.get('traceback', '')}")
+            out["gemma3"][name] = rec
+            say(f"compile C1: gemma3-1b × {name} × (16,16): "
+                f"{json.dumps(rec)}")
+        out["c1_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        out["mesh_serving"] = mesh_serving(dev, root)
+        out["c2_s"] = time.monotonic() - t0
+        say(f"compile C2: serving on the layout ({card}): rel err "
+            f"{out['mesh_serving']['rel_err']}, ranks "
+            f"{json.dumps(out['mesh_serving']['ranks'])}")
+        t0 = time.monotonic()
+        out["aot"] = aot_check(dev, root)
+        out["c3_s"] = time.monotonic() - t0
+        say(f"compile C3: AOT cache ({card}): {json.dumps(out['aot'])}")
+        t0 = time.monotonic()
+        out["op_cost"] = op_cost(dev)
+        out["c4_s"] = time.monotonic() - t0
+        say(f"compile C4: registered-op cost ({card}): "
+            f"{json.dumps(out['op_cost'])}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
 
 
 def _leaves(tree):
@@ -3319,6 +3803,10 @@ def main() -> int:
         return sharding_rank(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--parallel-rank"]:
         return parallel_rank(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--serve-rank"]:
+        return serve_rank(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--aot-load"]:
+        return aot_load(Path(sys.argv[2]))
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -3405,6 +3893,19 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--compile-only" in sys.argv[1:]:
+        model_kernel_parity(dev)
+        with phase("compile"):
+            comp = compile_phase(dev, card, None)
+        (out_dir / "chip_smoke_compile.json").write_text(
+            json.dumps({"card": card, "compile": comp}, indent=1))
+        say(json.dumps({"phase_s": PHASE_S}))
+        say(card)
+        say(json.dumps({"compile": comp}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--sharding-only" in sys.argv[1:]:
         sh = sharding(dev, card)
         say(card)
@@ -3479,6 +3980,14 @@ def main() -> int:
             row["families"] = fam["k7"]
     with phase("rans_stage"):
         stats["rans_stage"] = rans_stage_ms(dev)
+    with phase("compile"):
+        comp = compile_phase(dev, card, par)
+    for row in rows:
+        row["launches_compile"] = {
+            "mesh_serving": sum(m["launches"][row["name"]]
+                                for r in comp["mesh_serving"]["ranks"]
+                                for m in r["meshes"]),
+            "aot_load": comp["aot"]["load_launches"][row["name"]]}
     PHASE_S["total"] = time.monotonic() - T_START
     say(json.dumps({"phase_s": PHASE_S}))
     say(card)
@@ -3487,6 +3996,7 @@ def main() -> int:
     say(json.dumps({"families": fam}))
     say(json.dumps({"sharding": shard}))
     say(json.dumps({"parallel": par}))
+    say(json.dumps({"compile": comp}))
     say(json.dumps({"main_path": stats, "serving": serve_stats,
                     "training": train_stats}))
     say(json.dumps({"kernels": rows}))
@@ -3494,8 +4004,8 @@ def main() -> int:
         json.dumps({"card": card, "main_path": stats,
                     "serving": serve_stats, "training": train_stats,
                     "reliability": rel, "zoo": zoo_stats, "families": fam,
-                    "sharding": shard, "parallel": par, "kernels": rows,
-                    "phase_s": PHASE_S}, indent=1))
+                    "sharding": shard, "parallel": par, "compile": comp,
+                    "kernels": rows, "phase_s": PHASE_S}, indent=1))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

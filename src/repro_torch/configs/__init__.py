@@ -10,6 +10,7 @@ from . import (chameleon_34b, gemma2_9b, gemma3_1b, hubert_xlarge,
                recurrentgemma_9b, stablelm_1_6b, starcoder2_3b)
 from .base import (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, SSM, ModelConfig,
                    MoEConfig, Stage, build_stages, reduced)
+from .shapes import SHAPES, ShapeSpec, applicable, cells
 
 _MODULES = (kimi_k2_1t_a32b, llama4_scout_17b_16e, gemma3_1b, stablelm_1_6b,
             starcoder2_3b, gemma2_9b, chameleon_34b, mamba2_780m,
@@ -30,5 +31,5 @@ def get_config(arch_id: str) -> ModelConfig:
 
 
 __all__ = ["ATTN_GLOBAL", "ATTN_LOCAL", "ARCH_IDS", "CONFIGS", "RGLRU",
-           "SSM", "ModelConfig", "MoEConfig", "Stage", "build_stages",
-           "get_config", "reduced"]
+           "SHAPES", "SSM", "ModelConfig", "MoEConfig", "ShapeSpec", "Stage",
+           "applicable", "build_stages", "cells", "get_config", "reduced"]

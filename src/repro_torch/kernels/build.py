@@ -7,8 +7,9 @@ may hold several kernels: ``int8_codec.cu`` holds K5 and K6), loaded with
 (no PyTorch headers: a build takes seconds, not minutes). Libraries are
 built at first use from the sources in the checkout, into
 ``build/torch_kernels/`` at the repository root (git-ignored; override with
-``REPRO_TORCH_BUILD_DIR``), and named by a hash of their source so an
-edited kernel is never served from a stale build. ``build_all`` compiles
+``REPRO_TORCH_BUILD_DIR``), and named by a hash of their source and of
+``NVCC_FLAGS`` so an edited kernel or a changed flag is never served from
+a stale build. ``build_all`` compiles
 every kernel at once, one ``nvcc`` per source, all in parallel.
 
 Nothing here runs at import: the CPU test suite imports every module on a
@@ -82,10 +83,17 @@ def source(kernel: str) -> str:
     return SOURCES.get(kernel, kernel)
 
 
+def digest(name: str) -> str:
+    """The digest that names source `name`'s library: its bytes and
+    ``NVCC_FLAGS``, so that a change to either builds a new library
+    (``core.aot_cache`` keys its programs by the same digests)."""
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
 def _target(name: str) -> tuple:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return src, build_dir() / f"{name}-{digest}.so"
+    return SRC_DIR / f"{name}.cu", build_dir() / f"{name}-{digest(name)}.so"
 
 
 def ptxas_log(kernel: str) -> Path:

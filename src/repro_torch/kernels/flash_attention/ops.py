@@ -15,9 +15,19 @@
   attention_reference    the naive softmax oracle of
                          ``kernels/flash_attention/ref.py`` on (B, H, S, D).
 
+  op                     the registered operator
+                         ``repro_torch::flash_attention`` (``torch.library``):
+                         its CUDA implementation is ``flash_attention`` (the
+                         kernel and its count), its CPU implementation
+                         ``flash_attention_plain``, its fake implementation
+                         the output's shape, and its FLOP formula
+                         ``4·D·B·H·unmasked_pairs``: what
+                         ``FakeTensorMode``, ``launch.hlo_analysis`` and
+                         ``torch.export`` see, and what an exported program
+                         launches;
   attention              the differentiable attention the model calls: a
-                         ``torch.autograd.Function`` whose forward is
-                         ``flash_attention`` and whose backward is
+                         ``torch.autograd.Function`` whose forward is the
+                         operator and whose backward is
                          ``attention_backward``, PyTorch ops that recompute
                          the probabilities from q and k per call (the JAX
                          package differentiates its XLA attention and has no
@@ -225,6 +235,49 @@ def attention_backward(q, k, v, do, *, causal: bool = True, window: int = 0,
             dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
+_SCHEMA = ("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+           "int window, float softcap, float? scale, int q_offset) -> Tensor")
+_LIBRARIES: list = []
+
+
+@functools.cache
+def op():
+    """The registered operator ``repro_torch::flash_attention`` (defined
+    at the first call in a process); arguments ``(q, k, v, causal, window,
+    softcap, scale, q_offset)``."""
+    import torch
+    from torch.library import Library, register_fake
+    from torch.utils.flop_counter import register_flop_formula
+
+    def kw(causal, window, softcap, scale, q_offset):
+        return dict(causal=causal, window=window, softcap=softcap,
+                    scale=scale, q_offset=q_offset)
+
+    lib = Library("repro_torch", "FRAGMENT")
+    lib.define(_SCHEMA)
+    lib.impl("flash_attention",
+             lambda q, k, v, *a: flash_attention(q, k, v, **kw(*a)), "CUDA")
+    lib.impl("flash_attention",
+             lambda q, k, v, *a: flash_attention_plain(q, k, v, **kw(*a)),
+             "CPU")
+    # the kernel's output is a new contiguous tensor of q's shape and dtype
+    register_fake("repro_torch::flash_attention",
+                  lambda q, k, v, *a: q.new_empty(q.shape), lib=lib)
+    _LIBRARIES.append(lib)
+    packet = torch.ops.repro_torch.flash_attention
+    register_flop_formula(packet)(flops)
+    return packet.default
+
+
+def flops(q_shape, k_shape, v_shape=None, causal=True, window=0,
+          softcap=0.0, scale=None, q_offset=0, **kwargs) -> int:
+    """The kernel's FLOPs: 4·D per unmasked (query, key) pair of every
+    (b, h) (q·k and p·v, a multiply and an add each)."""
+    B, Sq, H, D = q_shape
+    return 4 * D * B * H * unmasked_pairs(Sq, k_shape[1], bool(causal),
+                                          int(window), int(q_offset))
+
+
 @functools.cache
 def _autograd_fn():
     import torch
@@ -235,7 +288,7 @@ def _autograd_fn():
             ctx.save_for_backward(q, k, v)
             ctx.kw = dict(causal=causal, window=window, softcap=softcap,
                           scale=scale, q_offset=q_offset)
-            return flash_attention(q, k, v, **ctx.kw)
+            return op()(q, k, v, causal, window, softcap, scale, q_offset)
 
         @staticmethod
         def backward(ctx, do):
@@ -248,12 +301,20 @@ def _autograd_fn():
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               softcap: float = 0.0, scale=None, q_offset: int = 0):
-    """Differentiable attention on (B, S, H, D): K8 forward (plain version
-    on the CPU), ``attention_backward`` as its gradient."""
-    return _autograd_fn().apply(q, k, v, causal, window, softcap, scale,
-                                int(q_offset))
+    """Differentiable attention on (B, S, H, D): the operator's forward
+    (K8 on the card, the plain version on the CPU),
+    ``attention_backward`` as its gradient. Where no gradient is recorded
+    (serving), the operator alone."""
+    import torch
+    args = (bool(causal), int(window or 0), float(softcap or 0.0),
+            None if scale is None else float(scale), int(q_offset))
+    if not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)):
+        return op()(q, k, v, *args)
+    return _autograd_fn().apply(q, k, v, *args)
 
 
+@functools.lru_cache(maxsize=4096)
 def unmasked_pairs(sq: int, sk: int, causal: bool, window: int,
                    q_offset: int = 0) -> int:
     """(query, key) pairs that the mask keeps for one (b, h): the work the

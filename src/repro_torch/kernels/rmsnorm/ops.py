@@ -20,12 +20,22 @@
                  the twin's values to the plain version and to the JAX
                  package.
 
+  op             the registered operator ``repro_torch::rmsnorm(x, scale,
+                 eps)`` (``torch.library``): its CUDA implementation is
+                 ``rmsnorm_fused`` (the kernel, its launch plan and its
+                 count), its CPU implementation ``rmsnorm_plain``, its fake
+                 implementation the output's shape, and its FLOP formula
+                 ``4·N·D``. ``FakeTensorMode``, the dispatch trace of
+                 ``launch.hlo_analysis`` and ``torch.export`` see the norm
+                 as this one operator, and an exported program launches the
+                 kernel through it; ``untraced`` says where nothing sees
+                 it, and eager serving calls the CUDA implementation;
   rmsnorm        the differentiable norm the model calls: a
-                 ``torch.autograd.Function`` whose forward is
-                 ``rmsnorm_fused`` and whose backward is
-                 ``rmsnorm_backward``, written out in PyTorch ops (the JAX
-                 package differentiates its XLA ``layers.rmsnorm``; it has
-                 no backward Pallas kernel, so neither has the port yet).
+                 ``torch.autograd.Function`` whose forward is the operator
+                 and whose backward is ``rmsnorm_backward``, written out in
+                 PyTorch ops (the JAX package differentiates its XLA
+                 ``layers.rmsnorm``; it has no backward Pallas kernel, so
+                 neither has the port yet).
 
 The kernel is bound by memory: it reads every input byte once and writes
 every output byte once, ``(2·N·D + D)·itemsize`` bytes in all. Its routes
@@ -50,6 +60,7 @@ bits; scalar sums in another order.
 from __future__ import annotations
 
 import functools
+import math
 import threading
 from typing import NamedTuple
 
@@ -284,6 +295,37 @@ def rmsnorm_backward(x, scale, dy, *, eps: float = EPS):
 
 
 @functools.cache
+def op():
+    """The registered operator ``repro_torch::rmsnorm`` (defined at the
+    first call in a process)."""
+    import torch
+    from torch.library import Library, register_fake
+    from torch.utils.flop_counter import register_flop_formula
+    lib = Library("repro_torch", "FRAGMENT")
+    lib.define("rmsnorm(Tensor x, Tensor scale, float eps) -> Tensor")
+    lib.impl("rmsnorm", lambda x, scale, eps: rmsnorm_fused(x, scale,
+                                                            eps=eps), "CUDA")
+    lib.impl("rmsnorm", lambda x, scale, eps: rmsnorm_plain(x, scale,
+                                                            eps=eps), "CPU")
+    # the kernel's output is a new contiguous tensor of x's shape and dtype
+    register_fake("repro_torch::rmsnorm",
+                  lambda x, scale, eps: x.new_empty(x.shape), lib=lib)
+    _LIBRARIES.append(lib)
+    packet = torch.ops.repro_torch.rmsnorm
+    register_flop_formula(packet)(flops)
+    return packet.default
+
+
+_LIBRARIES: list = []
+
+
+def flops(x_shape, scale_shape=None, *args, **kwargs) -> int:
+    """The norm's FLOPs: a square, a sum, the product with the row's
+    reciprocal root and with ``1 + scale``, per element of x."""
+    return 4 * math.prod(x_shape)
+
+
+@functools.cache
 def _autograd_fn():
     import torch
 
@@ -292,7 +334,7 @@ def _autograd_fn():
         def forward(ctx, x, scale, eps):
             ctx.save_for_backward(x, scale)
             ctx.eps = eps
-            return rmsnorm_fused(x, scale, eps=eps)
+            return op()(x, scale, eps)
 
         @staticmethod
         def backward(ctx, dy):
@@ -303,12 +345,29 @@ def _autograd_fn():
     return RMSNorm
 
 
+def untraced(x) -> bool:
+    """Whether `x` is a plain CUDA tensor that nothing traces: no
+    dispatch mode (``FakeTensorMode``, ``torch.export``'s, the trace of
+    ``launch.hlo_analysis``), no tensor subclass, no ``torch.compile``.
+    There the operator's CUDA implementation is ``rmsnorm_fused``, which
+    can be called without the dispatcher's host cost."""
+    import torch
+    return (type(x) is torch.Tensor and x.is_cuda
+            and not torch._C._len_torch_dispatch_stack()
+            and not torch.compiler.is_compiling())
+
+
 def rmsnorm(x, scale, *, eps: float = EPS):
-    """Differentiable RMSNorm: K7 forward (plain version on the CPU),
-    ``rmsnorm_backward`` as its gradient. Where no gradient is recorded
-    (serving), the forward alone, without the autograd node's host cost."""
+    """Differentiable RMSNorm: the operator's forward (K7 on the card,
+    the plain version on the CPU), ``rmsnorm_backward`` as its gradient.
+    Where no gradient is recorded (serving), the operator alone, without
+    the autograd node's host cost; on an untraced CUDA tensor its CUDA
+    implementation alone, without the dispatcher's (a decode step makes
+    ~157 K7 calls, and is bound by the host)."""
     import torch
     if not (torch.is_grad_enabled()
             and (x.requires_grad or scale.requires_grad)):
-        return rmsnorm_fused(x, scale, eps=eps)
+        if untraced(x):
+            return rmsnorm_fused(x, scale, eps=eps)
+        return op()(x, scale, eps)
     return _autograd_fn().apply(x, scale, eps)

@@ -137,12 +137,18 @@ def attention_local(q, k, v, *, window, softcap=0.0, scale=None,
                      scale=scale)
 
 
-def attention_decode(q, k, v, *, kv_len, softcap=0.0, scale=None):
+def attention_decode(q, k, v, *, kv_len, softcap=0.0, scale=None, lo=0,
+                     groups=()):
     """One query per sequence over a (possibly ring-buffered) KV cache.
-    q: (B, 1, H, D); k, v: (B, Smax, K, D); slots < min(kv_len, Smax) are
-    valid. q is scaled in its own dtype; scores and the PV product
-    accumulate in f32 (``preferred_element_type``), p is rounded to V's
-    dtype first."""
+    q: (B, 1, H, D); k, v: (B, Smax, K, D) hold slots ``[lo, lo + Smax)``
+    of the cache; slots below `kv_len` are valid. q is scaled in its own
+    dtype; scores and the PV product accumulate in f32
+    (``preferred_element_type``), p is rounded to V's dtype first.
+
+    `groups` (process groups) split the cache's slots over their ranks:
+    the softmax's max and sum and the weighted values are all-reduced over
+    them, and p is normalised before it is rounded, as the one-device
+    softmax is. No groups is one device."""
     import torch
     B, _, H, D = q.shape
     Smax, K = k.shape[1], k.shape[2]
@@ -151,10 +157,23 @@ def attention_decode(q, k, v, *, kv_len, softcap=0.0, scale=None):
     qf = (q.reshape(B, K, G, D) * scale).float()
     s = torch.einsum("bkgd,bskd->bkgs", qf, k.float())
     s = _softcap(s, softcap)
-    valid = torch.arange(Smax, device=q.device) < min(int(kv_len), Smax)
+    valid = torch.arange(lo, lo + Smax, device=q.device) < int(kv_len)
     s = torch.where(valid, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    if groups:
+        from ..sharding import collectives as C
+        m = s.amax(dim=-1, keepdim=True)
+        for g in groups:
+            m = C.all_reduce_max(m, g)
+        e = torch.exp(s - m)
+        den = e.sum(dim=-1, keepdim=True)
+        for g in groups:
+            den = C.all_reduce(den, g)
+        p = e / den
+    else:
+        p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
+    for g in groups:
+        o = C.all_reduce(o, g)
     return o.reshape(B, 1, H, D).to(q.dtype)
 
 

@@ -1,9 +1,9 @@
-"""The training forward on a mesh: ``Model.loss`` with an activation layout
-installed (``model.set_constrainer(act_constrainer(cfg, mesh))``). The
-reference annotates seven activations (``src/repro/models/model.py:204-206,
-:220, :242, :270, :287``) and GSPMD inserts the collectives; here the
-forward computes that layout with the differentiable collectives of
-``sharding.collectives``.
+"""The training forward and serving on a mesh: ``Model.loss`` with an
+activation layout installed (``model.set_constrainer(act_constrainer(cfg,
+mesh))``). The reference annotates seven activations
+(``src/repro/models/model.py:204-206, :220, :242, :270, :287``) and GSPMD
+inserts the collectives; here the forward computes that layout with the
+differentiable collectives of ``sharding.collectives``.
 
 Parameters are each rank's local shards (``DTensor.to_local()``). A layer
 gathers its own leaves just before it uses them (``_param``): every dim
@@ -47,6 +47,20 @@ equal on every rank of the TP axis; the step weighs each rank's share and
 sums the shares over the mesh (``train.steps``). Gradients of the local
 shards come out of the collectives' backward: each sum over ranks is the
 adjoint of a forward collective.
+
+Serving on the layout (``serve_layout``, ``prefill``, ``decode_step``,
+``encode``; ``train.steps.make_serve_fns(model, mesh=...)``) runs the same
+blocks without remat, on the rows of the batch that the decode cache's
+layout (``partition.cache_specs``) gives the rank, and keeps the rank's
+blocks of that cache: its kv heads where they divide the TP axis, else
+its slots of the positions (or, where the batch does not divide the DP
+axes, its slots over every axis). A decode step's attention over split
+positions takes every head's query and combines the ranks' partial
+softmax (the max and the sum reduced over the axes that split the
+positions, then the weighted values); a recurrent or conv state split
+over ``"model"`` is gathered for the replicated mixer and written back
+as the rank's block. Logits are gathered over the vocabulary where the
+head is split, so next tokens come from the whole distribution.
 """
 from __future__ import annotations
 
@@ -57,8 +71,8 @@ from ..sharding import collectives as C
 from ..sharding.partition import entry_axes
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
-from .layers import (_softcap, apply_norm, attention_full, attention_local,
-                     conv_pos_embed, mlp_apply)
+from .layers import (_softcap, apply_norm, attention_decode, attention_full,
+                     attention_local, conv_pos_embed, mlp_apply)
 
 ATTN = (ATTN_GLOBAL, ATTN_LOCAL)
 FULL = ("ssm", "rglru")          # mixers gathered over every axis
@@ -142,7 +156,10 @@ def _row_ropes(ropes, lo, n):
 # blocks
 # ---------------------------------------------------------------------------
 
-def _attention(model, lay, p, split, h, kind, ropes):
+def _attention(model, lay, p, split, h, kind, ropes, kv=None):
+    """The attention half on residual rows `h`. With `kv` (a list) a
+    prefill also appends the layer's keys and values over all S rows
+    (``(k, v, split over TP)``: this rank's kv heads, or all of them)."""
     cfg = model.cfg
     B, _, d = h.shape
     common = dict(softcap=cfg.attn_softcap, scale=cfg.attn_scale or None)
@@ -177,6 +194,10 @@ def _attention(model, lay, p, split, h, kind, ropes):
                 if cfg.use_bias and f"{n}_b" in p:
                     pl[f"{n}_b"] = p[f"{n}_b"][sel]
         q, k, v = model._qkv(pl, x, kind, ropes)
+        if kv is not None:
+            kv.append((k, v, True) if "k" in split else
+                      (model._proj(p, x, "k", kind, ropes),
+                       model._proj(p, x, "v", kind, ropes), False))
         if local:
             o = attention_local(q, k, v, window=cfg.window,
                                 causal=cfg.causal, **common)
@@ -196,11 +217,15 @@ def _attention(model, lay, p, split, h, kind, ropes):
         q = model._proj(p, xr, "q", kind, _row_ropes(ropes, off, n))
         k = model._proj(p, x, "k", kind, ropes)
         v = model._proj(p, x, "v", kind, ropes)
+        if kv is not None:
+            kv.append((k, v, False))
         o = attention_full(q, k, v, causal=cfg.causal, q_offset=off,
                            **common)
         out = model._out(p, o)
         return out if lay.seq_resid else C.all_gather(out, _tp(lay), 1)
-    out, _ = model._attn_sequence(p, _full(lay, h), kind, ropes)
+    out, (k, v) = model._attn_sequence(p, _full(lay, h), kind, ropes)
+    if kv is not None:
+        kv.append((k, v, False))
     return _rows(lay, out)
 
 
@@ -218,11 +243,16 @@ def _mlp(lay, cfg, p, split, prefix, h):
     return y + p["bd"] if "bd" in p else y
 
 
-def _mixer(cfg, p, lay, h, kind):
-    """SSM / RG-LRU: whole leaves, all S rows, replicated over TP."""
+def _mixer(cfg, p, lay, h, kind, state=None):
+    """SSM / RG-LRU: whole leaves, all S rows, replicated over TP. With
+    `state` (a list) a prefill also appends the final state."""
     key, fwd = ("rglru", rglru_mod.rglru_forward) if kind == RGLRU \
         else ("ssm", ssm_mod.ssd_forward)
-    return _rows(lay, fwd(p[key], _full(lay, h), cfg))
+    if state is None:
+        return _rows(lay, fwd(p[key], _full(lay, h), cfg))
+    o, st = fwd(p[key], _full(lay, h), cfg, return_state=True)
+    state.append(st)
+    return _rows(lay, o)
 
 
 def _moe(model, lay, p, split, h, exec_mesh):
@@ -283,13 +313,19 @@ def _rank_in(lay, axes) -> int:
     return i
 
 
-def _block(model, lay, p, split, x, kind, moe, ropes, exec_mesh):
+def _block(model, lay, p, split, x, kind, moe, ropes, exec_mesh, *,
+           cache=None, mix=None):
+    """One block on residual rows `x` → (x, aux). `cache` (a list): a
+    prefill's keys/values or final state are appended to it; `mix`: the
+    mixer half as ``mix(p, split, h, kind)`` (a decode step's)."""
     cfg = model.cfg
     h = apply_norm(p["norm_in"], x, cfg)
-    if kind in ATTN:
-        o = _attention(model, lay, p, split, h, kind, ropes)
+    if mix is not None:
+        o = mix(p, split, h, kind)
+    elif kind in ATTN:
+        o = _attention(model, lay, p, split, h, kind, ropes, cache)
     else:
-        o = _mixer(cfg, p, lay, h, kind)
+        o = _mixer(cfg, p, lay, h, kind, cache)
     if cfg.post_norm:
         o = apply_norm(p["norm_post"], o, cfg)
     x = x + o
@@ -421,12 +457,10 @@ def _xent(lay, x, w, split, targets, mask, *, softcap, chunk):
 # the loss
 # ---------------------------------------------------------------------------
 
-def loss(model, params, batch, lay, exec_mesh):
-    """``Model.loss`` of this rank's batch rows with the layout `lay`:
-    (loss, metrics), the same on every TP rank; `params` holds the local
-    shards."""
-    import torch
-    cfg = model.cfg
+def _top(lay, cfg, params):
+    """The leaves outside the stages, gathered: (top-level leaves, the
+    head as (d, V) or its TP columns, whether those are split, the final
+    norm)."""
     top = {n: _param(lay, n, params[n]) for n in params
            if not n.startswith("stage_") and not isinstance(params[n], dict)}
     head, hsplit = top["embed"] if cfg.tie_embeddings else top["lm_head"]
@@ -434,14 +468,29 @@ def loss(model, params, batch, lay, exec_mesh):
         head = head.T
     final = {k: _param(lay, f"final_norm/{k}", t)[0]
              for k, t in params["final_norm"].items()}
+    return top, head, hsplit, final
+
+
+def _features(lay, cfg, params, feats):
+    """An encoder's input frames → this rank's residual rows."""
+    import torch
+    x = feats.to(getattr(torch, cfg.dtype))
+    if cfg.positional == "conv":
+        w = _param(lay, "pos_conv/w", params["pos_conv"]["w"])[0]
+        x = conv_pos_embed({"w": w}, x)
+    return _rows(lay, x)
+
+
+def loss(model, params, batch, lay, exec_mesh):
+    """``Model.loss`` of this rank's batch rows with the layout `lay`:
+    (loss, metrics), the same on every TP rank; `params` holds the local
+    shards."""
+    import torch
+    cfg = model.cfg
+    top, head, hsplit, final = _top(lay, cfg, params)
     if cfg.family == "encoder":
-        feats = batch["features"]
-        x = feats.to(getattr(torch, cfg.dtype))
-        if cfg.positional == "conv":
-            w = _param(lay, "pos_conv/w", params["pos_conv"]["w"])[0]
-            x = conv_pos_embed({"w": w}, x)
-        S = x.shape[1]
-        x = _rows(lay, x)
+        x = _features(lay, cfg, params, batch["features"])
+        S = batch["features"].shape[1]
     else:
         tokens = batch["tokens"]
         S = tokens.shape[1]
@@ -469,3 +518,255 @@ def loss(model, params, batch, lay, exec_mesh):
     metrics = {"nll": nll.detach(), **{k: v.detach() for k, v in aux.items()},
                "loss": out.detach()}
     return out, metrics
+
+
+# ---------------------------------------------------------------------------
+# serving on the layout
+# ---------------------------------------------------------------------------
+
+def serve_layout(cfg, mesh, batch: int, cache_len: int):
+    """The layout a rank serves `batch` sequences with, caches of
+    `cache_len` positions: the training layout of `cfg` without
+    ``dp_over_model`` (the decode cache's layout, ``cache_specs``, keeps
+    the model axis for heads or positions), its batch rows split over the
+    DP axes where `batch` divides them (as the cache's), and the spec of
+    every cache leaf (``cache_specs`` of the global cache) in
+    ``cache_spec``."""
+    import dataclasses
+
+    from ..core.split_state import leaf_paths
+    from ..sharding.partition import (_axis, act_constrainer, cache_specs,
+                                      mesh_axes)
+    from .model import Model
+    lay = act_constrainer(dataclasses.replace(cfg, dp_over_model=False),
+                          mesh)
+    lay.batch_axes = entry_axes(_axis(mesh_axes(mesh), "batch", batch))
+    abstract = Model(cfg).init_cache(batch, cache_len, device="meta")
+    lay.cache_spec = {n: sh.spec for n, sh in
+                      leaf_paths(cache_specs(abstract, mesh, cfg))}
+    return lay
+
+
+def batch_rows(lay, batch: int) -> tuple:
+    """The rows [lo, hi) of a `batch`-row serving batch that this rank
+    takes under `lay` (``serve_layout``)."""
+    n = batch // _size(lay, lay.batch_axes)
+    lo = _rank_in(lay, lay.batch_axes) * n
+    return lo, lo + n
+
+
+def _decoding(lay):
+    """`lay` for one position a step: the residual stream whole on every
+    TP rank, no sequence-parallel attention."""
+    import copy
+    d = copy.copy(lay)
+    d.seq_resid = d.seq_attn = False
+    return d
+
+
+def _take(lay, t, dim: int, axes):
+    """This rank's block of `t`'s dim `dim` split over mesh `axes`."""
+    if not axes:
+        return t
+    n = t.shape[dim] // _size(lay, axes)
+    return t.narrow(dim, _rank_in(lay, axes) * n, n)
+
+
+def _gather_dim(lay, t, dim: int, axes):
+    """`t`'s dim `dim` whole from every rank's block over mesh `axes`."""
+    for a in reversed(axes):                       # minor axis first
+        t = C.all_gather(t, lay.group(a), dim)
+    return t
+
+
+def _layers(model, lay, params):
+    """Every block with its gathered parameters, in order: yields
+    ``(stage, layer, j, kind, moe, params, names split over TP)``."""
+    from ..core.split_state import leaf_paths
+    for si, stage in enumerate(model.stages):
+        prefix = f"stage_{si}"
+        flat = leaf_paths(params[prefix])
+        names = [n for n, _ in flat]
+        for r in range(stage.repeat):
+            p, split = _gather(lay, prefix, names, [t[r] for _, t in flat])
+            for j, kind in enumerate(stage.kinds):
+                sub = {n.split("/", 1)[1] for n in split
+                       if n.startswith(f"b{j}/")}
+                yield si, r, j, kind, stage.moe, p[f"b{j}"], sub
+
+
+def _logits(lay, x, head, hsplit, softcap):
+    """f32 logits of rows `x` over the whole vocabulary (gathered over TP
+    where the head is split)."""
+    logits = _softcap(x.float() @ head.float(), softcap)
+    return C.all_gather(logits, _tp(lay), logits.dim() - 1) if hsplit \
+        else logits
+
+
+def _cache_entry(model, lay, kind, got, spec: dict, cache_len: int):
+    """A block's prefill output (``_block``'s `cache`) → its cache leaves,
+    this rank's blocks under `spec` (leaf → spec of the stacked leaf)."""
+    if kind not in ATTN:
+        return {n: _take(lay, t, 1, entry_axes(spec[n][2]))
+                for n, t in got.items()}
+    k, v, k_split = got
+    out = {}
+    for n, t in model._build_attn_cache(kind, k, v, cache_len).items():
+        l_axes, k_axes = entry_axes(spec[n][2]), entry_axes(spec[n][3])
+        if k_split and not k_axes:
+            t = C.all_gather(t, _tp(lay), 2)
+        elif k_axes and not k_split:
+            t = _take(lay, t, 2, k_axes)
+        out[n] = _take(lay, t, 1, l_axes)
+    return out
+
+
+def prefill(model, params, tokens, lay, *, cache_len: int = 0,
+            exec_mesh=None):
+    """``Model.prefill`` of this rank's batch rows with the serving layout
+    `lay` (``serve_layout``): `params` the local shards (each layer
+    gathered as ``loss`` gathers it), `tokens` (B_local, S) → (last
+    logits (B_local, V) f32 over the whole vocabulary, this rank's cache
+    blocks under ``lay.cache_spec``)."""
+    import torch
+    cfg = model.cfg
+    exec_mesh = exec_mesh or {"mesh": None, "ax": None}
+    S = tokens.shape[1]
+    cache_len = cache_len or S
+    top, head, hsplit, final = _top(lay, cfg, params)
+    x = _embed(lay, cfg, *top["embed"], tokens)
+    ropes = model._ropes(torch.arange(S, device=x.device))
+    caches: dict = {}
+    for si, r, j, kind, moe, p, split in _layers(model, lay, params):
+        got: list = []
+        x, _ = _block(model, lay, p, split, x, kind, moe, ropes, exec_mesh,
+                      cache=got)
+        names = ("k", "v") if kind in ATTN else tuple(got[0])
+        spec = {n: lay.cache_spec[f"stage_{si}/b{j}/{n}"] for n in names}
+        entry = _cache_entry(model, lay, kind, got[0], spec, cache_len)
+        layers = caches.setdefault(f"stage_{si}", {}).setdefault(f"b{j}",
+                                                                 {})
+        for n, t in entry.items():
+            layers.setdefault(n, []).append(t)
+    caches = {s: {b: {n: torch.stack(ts) for n, ts in c.items()}
+                  for b, c in bs.items()} for s, bs in caches.items()}
+    x = apply_norm(final, x, cfg)
+    last = x[:, -1:]
+    if lay.seq_resid:
+        # the last position is the last TP rank's last row
+        last = C.all_gather(last, _tp(lay), 1)[:, -1:]
+    logits = _logits(lay, last[:, 0], head, hsplit, cfg.final_softcap)
+    caches["pos"] = torch.tensor(S, dtype=torch.int32, device=x.device)
+    return logits, caches
+
+
+def _attn_decode(model, lay, cache, spec, pos, ropes, p, split, h, kind):
+    """One token's attention on the cache blocks of this rank (`cache`:
+    this layer's views, written in place)."""
+    cfg = model.cfg
+    B, _, d = h.shape
+    common = dict(softcap=cfg.attn_softcap, scale=cfg.attn_scale or None)
+    kc, vc = cache["k"], cache["v"]
+    l_axes = entry_axes(spec["k"][2])
+    Lc = kc.shape[1]
+    cap = Lc * _size(lay, l_axes)
+    lo = _rank_in(lay, l_axes) * Lc
+    if kind == ATTN_LOCAL:
+        slot, n_valid = pos % cap, min(pos + 1, cap)
+    else:
+        # dynamic_update_slice clamps a start past the end
+        slot, n_valid = min(pos, cap - 1), min(pos + 1, cap)
+    if entry_axes(spec["k"][3]):
+        # heads over TP: this rank's q heads and their kv heads
+        tp = lay.coord(lay.tp_axis)
+        pl = dict(p)
+        for n in ("q", "k", "v"):
+            if cfg.use_bias and f"{n}_b" in p:
+                m = p[n].shape[1]
+                pl[f"{n}_b"] = p[f"{n}_b"][tp * m:(tp + 1) * m]
+        q, k, v = model._qkv(pl, h, kind, ropes)
+        kc[:, slot] = k[:, 0]
+        vc[:, slot] = v[:, 0]
+        o = attention_decode(q, kc, vc, kv_len=n_valid, **common)
+    else:
+        # every kv head on this rank, the positions split over `l_axes`
+        pw = dict(p)
+        for n in ("q", "k", "v"):
+            if n in split:
+                pw[n] = C.all_gather(p[n], _tp(lay), 1)
+        q, k, v = model._qkv(pw, h, kind, ropes)
+        if lo <= slot < lo + Lc:
+            kc[:, slot - lo] = k[:, 0]
+            vc[:, slot - lo] = v[:, 0]
+        o = attention_decode(q, kc, vc, kv_len=n_valid, lo=lo,
+                             groups=[lay.group(a) for a in l_axes], **common)
+        if "o" in split:
+            m = p["o"].shape[0]
+            h0 = lay.coord(lay.tp_axis) * m
+            o = o[:, :, h0:h0 + m]
+    out = o.reshape(B, 1, -1) @ p["o"].reshape(-1, d)
+    if "o" in split:
+        out = _reduce(lay, out)
+    if cfg.use_bias and "o_b" in p:
+        out = out + p["o_b"]
+    return out
+
+
+def _mixer_decode(model, lay, cache, spec, pos, ropes, p, split, h, kind):
+    """One token through an SSM or RG-LRU block, replicated over TP: the
+    state gathered where the cache splits it, this rank's blocks of the
+    new state written back (`pos`, `ropes`: unused, as ``_attn_decode``'s
+    arguments)."""
+    key, step = ("rglru", rglru_mod.rglru_decode_step) if kind == RGLRU \
+        else ("ssm", ssm_mod.ssd_decode_step)
+    axes = {n: entry_axes(spec[n][2]) for n in cache}
+    state = {n: _gather_dim(lay, t, 1, axes[n]) for n, t in cache.items()}
+    o, new = step(p[key], h, model.cfg, state)
+    for n, t in new.items():
+        cache[n].copy_(_take(lay, t, 1, axes[n]))
+    return o
+
+
+def decode_step(model, params, cache, tokens, lay, *, pos=None,
+                exec_mesh=None):
+    """``Model.decode_step`` of this rank's batch rows with the serving
+    layout `lay`: `cache` this rank's blocks (written in place), `tokens`
+    (B_local,) → (logits (B_local, V) f32 over the whole vocabulary,
+    cache). `pos` (default ``int(cache["pos"])``) is the token's position,
+    for a trace where the cache holds no values."""
+    import functools
+
+    import torch
+    cfg = model.cfg
+    exec_mesh = exec_mesh or {"mesh": None, "ax": None}
+    lay = _decoding(lay)
+    pos = int(cache["pos"]) if pos is None else int(pos)
+    top, head, hsplit, final = _top(lay, cfg, params)
+    x = _embed(lay, cfg, *top["embed"], tokens[:, None])
+    ropes = model._ropes(torch.tensor([pos], device=x.device))
+    for si, r, j, kind, moe, p, split in _layers(model, lay, params):
+        c = {n: t[r] for n, t in cache[f"stage_{si}"][f"b{j}"].items()}
+        spec = {n: lay.cache_spec[f"stage_{si}/b{j}/{n}"] for n in c}
+        fn = _attn_decode if kind in ATTN else _mixer_decode
+        x, _ = _block(model, lay, p, split, x, kind, moe, ropes, exec_mesh,
+                      mix=functools.partial(fn, model, lay, c, spec, pos,
+                                            ropes))
+    x = apply_norm(final, x, cfg)
+    logits = _logits(lay, x[:, 0], head, hsplit, cfg.final_softcap)
+    cache["pos"] = cache["pos"] + 1
+    return logits, cache
+
+
+def encode(model, params, feats, lay, *, exec_mesh=None):
+    """``Model.encode`` of this rank's batch rows with the layout `lay`:
+    feats (B_local, S, d_model) → (B_local, S, V) f32 logits."""
+    import torch
+    cfg = model.cfg
+    exec_mesh = exec_mesh or {"mesh": None, "ax": None}
+    _, head, hsplit, final = _top(lay, cfg, params)
+    x = _features(lay, cfg, params, feats)
+    ropes = model._ropes(torch.arange(feats.shape[1], device=x.device))
+    for _, _, _, kind, moe, p, split in _layers(model, lay, params):
+        x, _ = _block(model, lay, p, split, x, kind, moe, ropes, exec_mesh)
+    x = _full(lay, apply_norm(final, x, cfg))
+    return _logits(lay, x, head, hsplit, 0.0)

@@ -115,7 +115,7 @@ def _all_reduce_raw(x, group, *, inplace: bool = False):
     import torch.distributed as dist
     xf = x.float().contiguous()
     if size(group) > 1:
-        if xf.data_ptr() == x.data_ptr() and not inplace:
+        if xf is x and not inplace:
             xf = xf.clone()
         dist.all_reduce(xf, group=group)
     return xf

@@ -239,15 +239,27 @@ def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
 
-def make_serve_fns(model):
+def make_serve_fns(model, *, mesh=None, batch: int = 0,
+                   cache_len: int = 0):
     """Returns (prefill_fn, decode_fn, encode_fn) for greedy serving.
 
     prefill_fn(params, tokens, cache_len=0) -> (next_token (B,) int32, cache)
     decode_fn(params, cache, token)         -> (next_token (B,) int32, cache)
+
+    With `mesh` they serve one rank of it (``models.parallel``): `params`
+    are the rank's local shards, `tokens` and the results its rows of a
+    `batch`-row batch (``parallel.batch_rows``), the cache its blocks of a
+    `cache_len`-position cache (``partition.cache_specs``); the next
+    tokens come from the logits over the whole vocabulary, and
+    ``decode_fn`` takes the token's position as `pos` where the cache's
+    ``pos`` holds no value (a trace on fake tensors).
     """
     def sample(logits):
         # the first index of the maximum, as jnp.argmax
         return logits.argmax(dim=-1).int()
+
+    if mesh is not None:
+        return _mesh_serve_fns(model, mesh, batch, cache_len, sample)
 
     def prefill_fn(params, tokens, cache_len=0):
         logits, cache = model.prefill(params, tokens, cache_len=cache_len)
@@ -259,5 +271,28 @@ def make_serve_fns(model):
 
     def encode_fn(params, features):
         return model.encode(params, features)
+
+    return prefill_fn, decode_fn, encode_fn
+
+
+def _mesh_serve_fns(model, mesh, batch, cache_len, sample):
+    from ..models import parallel
+    from ..models.model import _exec
+    lay = parallel.serve_layout(model.cfg, mesh, batch, cache_len)
+
+    def prefill_fn(params, tokens, cache_len=cache_len):
+        logits, cache = parallel.prefill(model, params, tokens, lay,
+                                         cache_len=cache_len,
+                                         exec_mesh=_exec)
+        return sample(logits), cache
+
+    def decode_fn(params, cache, token, pos=None):
+        logits, cache = parallel.decode_step(model, params, cache, token,
+                                             lay, pos=pos, exec_mesh=_exec)
+        return sample(logits), cache
+
+    def encode_fn(params, features):
+        return parallel.encode(model, params, features, lay,
+                               exec_mesh=_exec)
 
     return prefill_fn, decode_fn, encode_fn
