@@ -186,14 +186,21 @@
    serving and training shapes of ``K8_SHAPES`` with TFLOP/s, both
    block_q and its ptxas registers and spills; K6 beside the one PyTorch
    call that computes it, ``torch.mul(q, scales[:, None], out=bf16)``,
-   bit-equal at both output dtypes), one JSON line of end-to-end numbers,
+   bit-equal at both output dtypes; K4 with the share of its bound,
+   ``bound_share``, and beside its earlier three-launch design,
+   ``earlier_ms``, built from git at ``K4_EARLIER_COMMIT`` where the
+   checkout has that history, else null),
+   one JSON line of end-to-end numbers,
    one ``{"phase_s": ...}`` line (each phase's wall seconds, also printed
    as the phase ends, and the total), and last the
    ``{"ok": true, "device": ...}`` line. Any failure exits
    non-zero.
 
 K4-K6 join the parity phase: K4 byte for byte on the same inputs and
-itemsizes as K2 (and K4 of K2 is the identity), K5 byte for byte on q and
+itemsizes as K2 (and K4 of K2 is the identity), and five launches in a row
+on the 64 MiB input at itemsizes 1 and 2, each equal to the plain version
+(K4's tiles join through a look-back whose races would show only now and
+then), K5 byte for byte on q and
 bit for bit on the scales over bf16/f32 inputs with exact .5 ties,
 all-zero blocks and ragged lengths, K6 bit for bit on both output dtypes.
 
@@ -216,6 +223,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+if not (ROOT / "src" / "repro_torch").is_dir():
+    sys.exit(f"{ROOT} is not a checkout of the repository "
+             "(src/repro_torch missing)")
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.kernels.timing import card_line, time_ms  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
 BF16_FLOPS = 989e12                # H100 SXM dense bf16, NVIDIA data sheet
 F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
@@ -230,6 +242,10 @@ MiB = 1 << 20
 # depth would take the script past its time limit)
 MAIN_LAYERS = 6
 RELIABILITY_LAYERS = 6
+# K4's earlier design (tile sums, a per-plane tile scan, then the inverse:
+# three launches that read the input twice) is timed beside it where git
+# can show its source at this commit
+K4_EARLIER_COMMIT = "cffcb76"
 PHASE_S: dict = {}             # wall seconds of each phase of this run
 T_START = time.monotonic()
 
@@ -257,13 +273,6 @@ def fail(msg: str):
 
 def say(*a):
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def bits(t):
@@ -342,22 +351,6 @@ class DeviceProfile:
         return out
 
 
-def time_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Mean CUDA-event time of `fn()` over `iters` runs after `warmup`."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 # ---------------------------------------------------------------------------
 # phase 2 — kernel parity
 # ---------------------------------------------------------------------------
@@ -428,6 +421,16 @@ def parity(dev):
                 fail(f"K3 rle_emit != plain on {name}")
         checks += 2
         torch.cuda.synchronize()
+    # K4 launched again and again on one input: every launch equal
+    u8 = inputs["random_64MiB"]
+    for k in (1, 2):
+        want = bp.inverse_plain(u8, k)
+        for i in range(5):
+            if not torch.equal(bp.inverse_planes(u8, k), want):
+                fail(f"K4 byteplane_inv launch {i} != plain on random_64MiB "
+                     f"k={k}")
+            checks += 1
+        del want
     # K1 through the segmented scanner: candidates vs the numpy oracle
     data = inputs["random_64MiB"][:16 * MiB].cpu().numpy()
     got = cdc_scan.GearScanner(ms, ml, backend="pallas",
@@ -921,6 +924,25 @@ def main_path(dev, card: str, profile: bool = False):
 # phase 7 — per-kernel numbers at each path's largest shapes
 # ---------------------------------------------------------------------------
 
+def k4_earlier_source():
+    """The earlier K4 source, from git at ``K4_EARLIER_COMMIT``, written
+    under ``build/k4_earlier/``, as (path, where it came from); None where
+    the checkout has no such history."""
+    rel = "src/repro_torch/csrc/byteplane_inv.cu"
+    try:
+        text = subprocess.run(
+            ["git", "-C", str(ROOT), "show", f"{K4_EARLIER_COMMIT}:{rel}"],
+            capture_output=True, text=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    if "tile_sums" not in text:
+        return None
+    path = ROOT / "build" / "k4_earlier" / "byteplane_inv.cu"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(text)
+    return path, f"git {K4_EARLIER_COMMIT}:{rel}"
+
+
 def kernel_table(dev, embed, launches: dict) -> list:
     """Time each checkpoint kernel (K1-K6) and its plain version on the
     largest payload its path gives it, params/embed (603,979,776 bytes of
@@ -932,6 +954,7 @@ def kernel_table(dev, embed, launches: dict) -> list:
 
     from repro_torch.core import cdc_scan
     from repro_torch.core.cdc import GearChunker
+    from repro_torch.kernels import timing
     from repro_torch.kernels.ckpt_codec import byteplane as bp
     from repro_torch.kernels.ckpt_codec import entropy as ent
     from repro_torch.kernels.ckpt_codec import int8_codec as ic
@@ -1027,6 +1050,31 @@ def kernel_table(dev, embed, launches: dict) -> list:
         torch.cuda.empty_cache()
     if not torch.equal(bp.inverse_planes(t, 2), raw):
         fail("K4 does not invert K2 at params/embed")
+    k4 = next(r for r in rows if r["name"] == "byteplane_inv")
+    k4["bound_share"] = k4["bound_ms"] / k4["ms"]
+    found = k4_earlier_source()
+    if found is None:
+        k4["earlier_ms"] = None
+        k4["earlier_from"] = (f"not timed: no git history at "
+                              f"{K4_EARLIER_COMMIT} in this checkout")
+    else:
+        earlier = timing.byteplane_inv_launcher(timing.load_variant(
+            "byteplane_inv", found[0], ROOT / "build" / "k4_earlier"))
+        out = torch.empty_like(t)
+        if not torch.equal(earlier(t, out, 2), raw):
+            fail(f"the earlier K4 ({found[1]}) does not invert K2 at "
+                 "params/embed")
+
+        def kern():
+            return bp.inverse_planes(t, 2)
+
+        turns = [time_ms(lambda: earlier(t, out, 2), iters=10),
+                 time_ms(kern, iters=10), time_ms(kern, iters=10),
+                 time_ms(lambda: earlier(t, out, 2), iters=10)]
+        k4["earlier_ms"] = (turns[0] + turns[3]) / 2
+        k4["earlier_turns"] = turns     # earlier, K4, K4, earlier
+        k4["earlier_from"] = f"timed in this run: {found[1]}"
+        del out
     return rows
 
 
@@ -3796,9 +3844,6 @@ def _leaves(tree):
 
 
 def main() -> int:
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        fail(f"{ROOT} is not a checkout of the repository "
-             "(src/repro_torch missing)")
     if sys.argv[1:2] == ["--sharding-rank"]:
         return sharding_rank(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--parallel-rank"]:

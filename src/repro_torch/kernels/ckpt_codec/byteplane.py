@@ -34,7 +34,12 @@ from .. import build
 
 KERNEL_ITEMSIZES = (1, 2, 4, 8)
 
-INV_TILE = 4096         # elements per tile of K4 (csrc/byteplane_inv.cu)
+# K4's tiles and scratch (csrc/byteplane_inv.cu: TILE_ELEMS, STATUS_BYTES,
+# COUNTER_BYTES): elements of each plane in a tile, by itemsize; one status
+# word per (tile, group of four planes), then the tile counter
+INV_TILE = (0, 32768, 16384, 8192, 8192, 4096, 4096, 4096, 4096)
+INV_STATUS_BYTES = 8
+INV_COUNTER_BYTES = 4
 
 launches = 0            # K2 launches since the last reset
 inverse_launches = 0    # K4 launches since the last reset
@@ -104,6 +109,15 @@ def inverse_plain(u8, itemsize: int):
     return torch.cat([x.t().reshape(-1), u8[ne * k:]])
 
 
+def inverse_scratch_bytes(n: int, itemsize: int) -> int:
+    """Bytes of scratch K4 takes for an n-byte stream of `itemsize`-byte
+    elements: a status word per (tile, group of four planes) and the tile
+    counter (the kernel zeroes them itself)."""
+    k = int(itemsize)
+    ntiles = -(-(n // k) // INV_TILE[k])
+    return INV_STATUS_BYTES * ntiles * (-(-k // 4)) + INV_COUNTER_BYTES
+
+
 def inverse_planes(u8, itemsize: int):
     """Inverse transform of a flat contiguous uint8 tensor. CUDA tensor →
     the K4 kernel on the current stream; CPU tensor → ``inverse_plain``."""
@@ -122,11 +136,10 @@ def inverse_planes(u8, itemsize: int):
     out = torch.empty_like(u8)
     if n == 0:
         return out
-    ntiles = -(-(n // k) // INV_TILE)
-    scratch = torch.empty(max(ntiles * k, 1), dtype=torch.uint8,
-                          device=u8.device)
+    need = inverse_scratch_bytes(n, k)
+    scratch = torch.empty(need, dtype=torch.uint8, device=u8.device)
     build.launch("byteplane_inv", u8, u8.data_ptr(), out.data_ptr(),
-                 scratch.data_ptr(), n, k, ntiles * k)
+                 scratch.data_ptr(), n, k, need)
     global inverse_launches
     with _count_lock:
         inverse_launches += 1

@@ -8,8 +8,10 @@ restored leaves and int8 payloads are bit-exact).
 On this CPU machine every wrapper takes its plain PyTorch version (the
 tensors lie on the CPU), which is exactly the arithmetic the CUDA kernels
 are held to on the card (``test_torch_cuda_kernels.py``)."""
+import re
 import sys
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -150,6 +152,52 @@ def test_byteplane_inverse_matches_pallas_interpret(itemsize, size):
     np.testing.assert_array_equal(
         tbp.inverse_planes(tbp.forward_planes(_t(u8), itemsize),
                            itemsize).numpy(), u8)
+
+
+def _inv_cu():
+    """The C entry of ``csrc/byteplane_inv.cu``: its integer constants, its
+    tile table and the statements that size the scratch it refuses below."""
+    src = (Path(tbp.__file__).resolve().parents[2] / "csrc"
+           / "byteplane_inv.cu").read_text()
+    consts = {m[1]: int(m[2]) for m in
+              re.finditer(r"constexpr int (\w+) = (\d+);", src)}
+    table = re.search(r"constexpr int TILE_ELEMS\[\d+\] = \{([^}]*)\};",
+                      src)[1]
+    consts["TILE_ELEMS"] = tuple(int(x) for x in table.split(","))
+    entry = src[src.index('extern "C" int rt_byteplane_inv'):]
+    sizing = re.findall(r"const int64_t (\w+) = ([^;]*);", entry)
+    assert [name for name, _ in sizing] == ["ne", "ntiles", "words", "need"]
+    assert "if (scratch_bytes < need" in entry
+    return consts, sizing
+
+
+def test_byteplane_inverse_tiles_follow_the_kernel():
+    """``INV_TILE`` is the kernel's tile table: TILE_BYTES over the
+    itemsize rounded up to a power of two, whole rows of 16 elements a
+    thread."""
+    consts, _ = _inv_cu()
+    tiles = consts["TILE_ELEMS"]
+    assert tbp.INV_TILE == tiles
+    assert len(tiles) == consts["MAX_K"] + 1
+    for k in range(1, consts["MAX_K"] + 1):
+        assert tiles[k] * (1 << (k - 1).bit_length()) == consts["TILE_BYTES"]
+        assert tiles[k] % (16 * consts["THREADS"]) == 0
+    assert (tbp.INV_STATUS_BYTES, tbp.INV_COUNTER_BYTES) == \
+        (consts["STATUS_BYTES"], consts["COUNTER_BYTES"])
+
+
+@pytest.mark.parametrize("itemsize", range(1, 9))
+@pytest.mark.parametrize("n", [0, 7, 131_073, 603_979_776, 2_684_354_560])
+def test_byteplane_inverse_scratch_matches_the_kernel(n, itemsize):
+    """The wrapper allocates exactly the scratch that the C entry asks for
+    (its own statements, evaluated here): a short scratch never reaches the
+    card. Sizes: none, a ragged few, a tile past 2^17, ``params/embed``,
+    llama4-scout's 2.7 GB ``moe/wg``."""
+    consts, sizing = _inv_cu()
+    env = {**consts, "n": n, "k": itemsize}
+    for name, expr in sizing:
+        env[name] = eval(expr.replace("/", "//"), {}, env)  # C: n >= 0
+    assert tbp.inverse_scratch_bytes(n, itemsize) == env["need"]
 
 
 # ---------------------------------------------------------------------------

@@ -315,10 +315,12 @@ def test_flash_attention_bf16_is_deterministic(cuda, window):
 
 
 @pytest.mark.parametrize("kind", ["random", "zeros", "runs"])
-@pytest.mark.parametrize("size", [0, 1, 7, 4097, 65_541, 1_000_003])
+@pytest.mark.parametrize("size", [0, 1, 7, 4097, 65_541, 1_000_003,
+                                  64 * (1 << 20) + 12_345])
 def test_byteplane_inverse_kernel_matches_plain(cuda, kind, size):
     """K4 byte for byte, ragged tails and ne = 0 included; K4 of K2 is the
-    identity."""
+    identity. The 64 MiB case spans thousands of tiles: the look-back
+    crosses many waves of CTAs."""
     u8 = torch.from_numpy(_payload(size, kind, size + 1)).to(cuda)
     for k in (1, 2, 4, 8):
         before = bp.inverse_launches
@@ -330,6 +332,20 @@ def test_byteplane_inverse_kernel_matches_plain(cuda, kind, size):
     np.testing.assert_array_equal(bp.inverse_planes(u8, 2).cpu().numpy(),
                                   codec.byteplane_inverse(u8.cpu().numpy(),
                                                           2))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("k", [1, 2])
+def test_byteplane_inverse_repeated_launches_are_bit_equal(cuda, k, offset):
+    """20 launches of K4 on one 64 MiB input all equal ``inverse_plain``:
+    a flag seen before its byte in the look-back would show only now and
+    then. Offset 1 is a view off 16-byte alignment (the byte-load route)."""
+    buf = torch.from_numpy(_payload(64 * (1 << 20) + offset, "random",
+                                    k + 17 * offset)).to(cuda)
+    u8 = buf[offset:]
+    want = bp.inverse_plain(u8, k)
+    for _ in range(20):
+        assert torch.equal(bp.inverse_planes(u8, k), want)
 
 
 def _int8_input(kind, n, g, dev):
