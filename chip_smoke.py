@@ -25,6 +25,8 @@
     python3 chip_smoke.py --parallel-only  # build, K7/K8 parity, the zoo
                                          #   phase, then the parallel
                                          #   phase (30 GB of disk)
+    python3 chip_smoke.py --remat-only   # build, K7/K8 parity, the remat
+                                         #   phase alone
     python3 chip_smoke.py --compile-only # build, K7/K8 parity, the
                                          #   compile phase alone (its dry
                                          #   run then has no measured
@@ -147,9 +149,25 @@
    restore numbers of each serve and the step, tokens/s, peak and
    ``restore_to_first_step_s`` of each training run. Its checkpoints go
    to ``build/chip_smoke_families`` (removed when it ends).
-9. The sharding phase (``sharding``), after the families: full-width
+9. The remat phase (``remat_phase``), after the families: full-width,
+   full-depth gemma3-1b (26 layers, five remat units), one batch of 4 ×
+   1,024 tokens, the same bf16 params, ``make_train_step(...).grads``
+   under each of ``full``, ``nothing``, ``dots`` and ``offload_resid``
+   (after a warm-up call): loss and every gradient bit-equal to
+   ``full``'s, the peaks ordered ``nothing`` < ``dots`` < ``full`` with
+   ``offload_resid`` not above ``nothing``, K8 launched twice as often as
+   under ``full``; each policy's seconds, peak and K7/K8 launches are
+   printed. Then ``Trainer`` trains mamba2-780m at full width and all 48
+   layers (AdamW, 4 × 1,024 tokens, SSD chunks of 256, its config's
+   ``nothing`` policy) three steps with no checkpoint: finite loss and
+   ``grad_norm`` at every step, peak and step s printed, and the peak of
+   its forward and backward alone (``grads``, no update). One
+   ``{"remat": ...}`` line. Every training step of the script runs under
+   its config's policy (``nothing``), so K7 and K8 run again in each
+   step's recompute.
+10. The sharding phase (``sharding``), after the families: full-width
    gemma3-1b moved card → four CPU ranks → card, bit for bit.
-10. The parallel phase (``parallel``), after the zoo, on its checkpoint:
+11. The parallel phase (``parallel``), after the zoo, on its checkpoint:
    K8 with ``q_offset`` at llama4-scout's training shape and gemma2-9b's
    window of 4,096 at S 8,192, each split four ways over the sequence,
    within ``attn_err``'s bound (the no-offset control must fail it); four
@@ -161,7 +179,7 @@
    K4, K7 and K8 launched in every rank; then ``moe_apply_shard_map``
    over four ranks against ``moe_apply``'s routed experts on one. One
    ``{"parallel": ...}`` line.
-11. The compile phase (``compile``), last: the dry run
+12. The compile phase (``compile``), last: the dry run
    (``launch.dryrun.run_cell`` on fake tensors over a fake process group)
    traces each rank of the parallel phase's cell, whose predicted step
    peak must be within 25% of the rank's measured ``peak_device_bytes``
@@ -179,7 +197,7 @@
    through the registered operator against the direct wrapper, and
    serving's decode tokens/s both ways. One ``{"compile": ...}`` line;
    the kernel rows carry ``launches_compile``.
-12. Prints one JSON line of per-kernel numbers (CUDA-event times at each
+13. Prints one JSON line of per-kernel numbers (CUDA-event times at each
    path's largest shapes, bounds from the bytes or operations each kernel
    needs, the plain version's and a library call's time; K7 also at every
    shape of ``K7_SHAPES`` with the L2 cold, each route forced; K8 also at the
@@ -2689,6 +2707,177 @@ def families(dev, card: str, profile: bool = False) -> dict:
     return out
 
 
+# the remat phase: full-width, full-depth gemma3-1b's loss and gradients
+# under each remat policy (26 layers: five units, four of its six-block
+# pattern and one of two), and mamba2-780m trained at all 48 layers
+REMAT_POLICIES = ("full", "nothing", "dots", "offload_resid")
+REMAT_TRAIN_ARCH = "mamba2-780m"
+REMAT_TRAIN_STEPS = 3
+
+
+def remat_phase(dev, card: str) -> dict:
+    """(a) gemma3-1b at full width and depth, one batch of 4 × 1,024
+    tokens, the same bf16 params: ``make_train_step(...).grads`` (the
+    step's loss and gradients under ``train.steps.deterministic``) once
+    under each policy of ``REMAT_POLICIES`` after a warm-up call. Loss and
+    every gradient must be bit-equal to ``full``'s (the recompute replays
+    the same kernels on the same inputs), the peaks ordered ``nothing`` <
+    ``dots`` < ``full`` with ``offload_resid`` not above ``nothing``, and
+    K8 launched twice as often as under ``full`` (forward and recompute).
+    (b) ``Trainer`` trains mamba2-780m at full width and all 48 layers
+    (AdamW, batch 4 × 1,024, SSD chunks of 256, its config's ``nothing``
+    policy) for ``REMAT_TRAIN_STEPS`` steps with no checkpoint: finite
+    loss and ``grad_norm`` at every step; then the peak of the forward and
+    backward alone (``grads``, no update) at the trained state. Launches
+    are read per segment."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import gemma3_1b, get_config
+    from repro_torch.core.split_state import leaf_paths
+    from repro_torch.core.storage import Tier, TieredStore
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models import Model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.steps import make_train_step
+
+    out = {"card": card, "policies": {}, "launches": {}}
+    # ---- (a) the four policies at full depth ------------------------------
+    cfg = gemma3_1b.CONFIG
+    model = Model(cfg)
+    params = model.init(seed=0, device=dev)
+    pipe = SyntheticPipeline(cfg, batch=TRAIN["batch"],
+                             seq_len=TRAIN["seq_len"], device=dev)
+    batch, _ = pipe.next(pipe.init_state(TRAIN["seed"]))
+    state = {"params": params,
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    out["gemma3"] = {"arch": cfg.arch_id, "n_layers": cfg.n_layers,
+                     "units": sum(st.repeat for st in model.stages),
+                     "params": sum(t.numel() for _, t in
+                                   leaf_paths(params)), **TRAIN}
+
+    def grads_under(policy):
+        m = Model(dataclasses.replace(cfg, remat_policy=policy))
+        step = make_train_step(m, make_optimizer(m.cfg))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        reset_counts()
+        t0 = time.monotonic()
+        loss, _, g = step.grads(state, batch)
+        torch.cuda.synchronize()
+        sec = time.monotonic() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        host = [t.cpu() for _, t in leaf_paths(g)]
+        del g
+        return loss.cpu(), host, {"s": sec, "peak_device_bytes": peak,
+                                  "base_bytes": base,
+                                  "launches": launches}
+
+    grads_under("nothing")          # warm-up: first-call set-up, not kept
+    ref_loss = ref = None
+    for policy in REMAT_POLICIES:
+        loss, host, st = grads_under(policy)
+        if policy == "full":
+            ref_loss, ref = loss, host
+        elif not (torch.equal(loss, ref_loss) and all(
+                torch.equal(bits(a), bits(b)) for a, b in zip(host, ref))):
+            bad = [n for (n, _), a, b in zip(leaf_paths(params), host, ref)
+                   if not torch.equal(bits(a), bits(b))]
+            fail(f"remat {policy}: loss or gradients differ from full's "
+                 f"(loss {float(loss)} vs {float(ref_loss)}; leaves "
+                 f"{bad[:5]})")
+        st["loss"] = float(loss)
+        out["policies"][policy] = st
+        out["launches"][f"gemma3_{policy}"] = st["launches"]
+        say(f"remat {policy}: {st['s']:.3f} s, peak "
+            f"{st['peak_device_bytes']} bytes (base {st['base_bytes']}), "
+            f"K7 {st['launches']['rmsnorm']} K8 "
+            f"{st['launches']['flash_attention']} launches, loss "
+            f"{st['loss']} ({card})")
+        del host
+    del ref, state, params
+    torch.cuda.empty_cache()
+    pk = {p: out["policies"][p]["peak_device_bytes"] for p in REMAT_POLICIES}
+    if not (pk["nothing"] < pk["dots"] < pk["full"]
+            and pk["offload_resid"] <= pk["nothing"]):
+        fail(f"remat peaks out of order: {pk}")
+    k8 = {p: out["policies"][p]["launches"]["flash_attention"]
+          for p in REMAT_POLICIES}
+    for p in ("nothing", "dots", "offload_resid"):
+        if k8[p] != 2 * k8["full"] or k8["full"] != cfg.n_layers:
+            fail(f"remat {p}: K8 launched {k8[p]} times against full's "
+                 f"{k8['full']} ({cfg.n_layers} layers)")
+    # ---- (b) mamba2-780m at full depth ------------------------------------
+    mcfg = get_config(REMAT_TRAIN_ARCH)
+    root = ROOT / "build" / "chip_smoke_remat"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        tr = Trainer(mcfg, TrainerConfig(workdir=str(root), log_every=1,
+                                         ckpt_every=0, **TRAIN),
+                     store=TieredStore(Tier("fast", root / "store")),
+                     device=dev)
+        t0 = time.monotonic()
+        tr.init_or_restore()
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        state_bytes = sum(t.nbytes for _, t in leaf_paths(tr.state))
+        reset_counts()
+        # stop_after leaves the run paused: no end-of-run save
+        tr.fit(REMAT_TRAIN_STEPS, stop_after=REMAT_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        out["launches"]["mamba2_steps"] = read_counts()
+        hist = tr.history
+        run = {"arch": mcfg.arch_id, "n_layers": mcfg.n_layers,
+               "remat_policy": mcfg.remat_policy,
+               "ssd_chunk": mcfg.ssm.chunk_size, **TRAIN,
+               "steps": REMAT_TRAIN_STEPS, "init_s": init_s,
+               "state_bytes": state_bytes,
+               "params": sum(t.numel() for _, t in
+                             leaf_paths(tr.state["params"])),
+               "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+               **{k: [h[k] for h in hist] for k in ("loss", "grad_norm",
+                                                    "step_s")}}
+        # the forward and backward alone (no update) at the trained state:
+        # which part of the step sets its peak
+        mpipe = SyntheticPipeline(mcfg, batch=TRAIN["batch"],
+                                  seq_len=TRAIN["seq_len"], device=dev)
+        mbatch, _ = mpipe.next(mpipe.init_state(TRAIN["seed"]))
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        g = make_train_step(tr.model, tr.optimizer).grads(tr.state,
+                                                          mbatch)[2]
+        torch.cuda.synchronize()
+        run["grads_peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+        run["grads_base_bytes"] = base
+        del g
+        tr.manager.close()
+        del tr
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    run["tokens_per_s"] = TRAIN["batch"] * TRAIN["seq_len"] * \
+        (REMAT_TRAIN_STEPS - 1) / sum(run["step_s"][1:])
+    out["mamba2"] = run
+    say(f"remat {mcfg.arch_id} at {mcfg.n_layers} layers: loss "
+        f"{run['loss']}, grad_norm {run['grad_norm']}, step s "
+        f"{run['step_s']}, peak {run['peak_device_bytes']} bytes (the "
+        f"forward and backward alone {run['grads_peak_device_bytes']}), "
+        f"state {state_bytes} bytes ({card})")
+    if len(hist) != REMAT_TRAIN_STEPS or not all(
+            math.isfinite(x) for x in run["loss"] + run["grad_norm"]):
+        fail(f"remat {mcfg.arch_id}: loss or grad_norm not finite at "
+             f"every step: {run['loss']} {run['grad_norm']}")
+    if out["launches"]["mamba2_steps"]["rmsnorm"] <= 0:
+        fail(f"remat {mcfg.arch_id}: K7 was not launched in its steps")
+    return out
+
+
 # the sharding phase: gemma3-1b at full width, SHARD_LAYERS of its 26 layers
 # (6 until the parallel phase joined the script; cut to keep it inside its
 # limit)
@@ -3938,6 +4127,19 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--remat-only" in sys.argv[1:]:
+        model_kernel_parity(dev)
+        with phase("remat"):
+            rem = remat_phase(dev, card)
+        (out_dir / "chip_smoke_remat.json").write_text(
+            json.dumps({"card": card, "remat": rem}, indent=1))
+        say(json.dumps({"phase_s": PHASE_S}))
+        say(card)
+        say(json.dumps({"remat": rem}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--compile-only" in sys.argv[1:]:
         model_kernel_parity(dev)
         with phase("compile"):
@@ -3997,6 +4199,9 @@ def main() -> int:
         fam = families(dev, card, profile=profile)
         fam["parity"] = parity_fam
         torch.cuda.empty_cache()
+    with phase("remat"):
+        rem = remat_phase(dev, card)
+        torch.cuda.empty_cache()
     with phase("sharding"):
         shard = sharding(dev, card)
     codec = ("byteplane_inv", "quantize_blocks", "dequantize_blocks")
@@ -4014,6 +4219,8 @@ def main() -> int:
             seg: c[row["name"]] for seg, c in zoo_stats["launches"].items()}
         row["launches_families"] = {
             seg: c[row["name"]] for seg, c in fam["launches"].items()}
+        row["launches_remat"] = {
+            seg: c[row["name"]] for seg, c in rem["launches"].items()}
         row["launches_sharding"] = {
             seg: c[row["name"]] for seg, c in shard["launches"].items()}
         row["launches_parallel"] = {
@@ -4039,6 +4246,7 @@ def main() -> int:
     say(json.dumps({"reliability": rel}))
     say(json.dumps({"zoo": zoo_stats}))
     say(json.dumps({"families": fam}))
+    say(json.dumps({"remat": rem}))
     say(json.dumps({"sharding": shard}))
     say(json.dumps({"parallel": par}))
     say(json.dumps({"compile": comp}))
@@ -4049,7 +4257,7 @@ def main() -> int:
         json.dumps({"card": card, "main_path": stats,
                     "serving": serve_stats, "training": train_stats,
                     "reliability": rel, "zoo": zoo_stats, "families": fam,
-                    "sharding": shard, "parallel": par, "compile": comp,
+                    "remat": rem, "sharding": shard, "parallel": par, "compile": comp,
                     "kernels": rows, "phase_s": PHASE_S}, indent=1))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,12 +40,30 @@ key/value, and an SSM or RG-LRU block's new conv history and state, into
 the cache tensors in place and returns the same tree (the JAX version
 returns new arrays); ``init`` draws from a ``torch.Generator``
 (other values than ``jax.random`` from the same seed — move weights across
-with ``convert.params_from_jax``); the training forward keeps every
-block's activations for the backward pass (no per-layer remat: the JAX
-``remat_policy`` is a memory knob of its compiled step, and full-width
-gemma3-1b fits the card without it); the SSD chunk masks its decay block
+with ``convert.params_from_jax``); the SSD chunk masks its decay block
 before the ``exp`` (``models/ssm.py``: the reference's gradient is NaN at
 chunk 256).
+
+Rematerialisation follows ``cfg.remat_policy`` as the reference's
+``jax.checkpoint`` over each scan step does: the unit is one repeat of a
+stage (every block of ``stage.kinds``: six for gemma3-1b, three for
+recurrentgemma-9b), run by ``_resolve_policy(name)``:
+
+* ``nothing`` — ``torch.utils.checkpoint`` (non-reentrant): autograd keeps
+  the unit's input, and the backward runs the unit again;
+* ``dots`` — the same with selective checkpointing: the outputs of the
+  products with no batch dims (``mm``, ``addmm``, a ``bmm``/``baddbmm``
+  of batch 1) that the recompute reaches are kept, everything else is
+  recomputed, as ``dots_with_no_batch_dims_saveable``;
+* ``full`` — no wrapper: every activation is kept;
+* ``offload_resid`` — nothing kept on the device: the unit's input is
+  copied to (pinned) host memory, the unit is checkpointed on that copy,
+  and the backward copies it back before it recomputes.
+
+``loss`` and ``encode`` apply it while grad is enabled (serving's
+``encode``, ``prefill`` and ``decode_step`` never recompute); the layout
+step (``models.parallel``) takes its per-layer wrapper from the same
+function.
 """
 from __future__ import annotations
 
@@ -84,6 +102,156 @@ def set_exec_mesh(mesh):
         from ..sharding.partition import mesh_axes
         _exec["mesh"] = mesh
         _exec["ax"] = mesh_axes(mesh)
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation (``src/repro/models/model.py::REMAT_POLICIES``)
+# ---------------------------------------------------------------------------
+
+def _full(fn, x, *args):
+    return fn(x, *args)
+
+
+def _nothing(fn, x, *args):
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(fn, x, *args, use_reentrant=False)
+
+
+def dots_saveable(func, args) -> bool:
+    """Whether ``dots`` keeps the output of operator `func` on `args`: a
+    product with no batch dims. A projection ``x @ w`` dispatches as
+    ``mm``, an einsum against a 2-D weight as a ``bmm`` of batch 1; the MoE
+    expert GEMMs and the SSD einsums are ``bmm``s over real batch dims,
+    and JAX keeps none of those (``dots_with_no_batch_dims_saveable``)."""
+    import torch
+    aten = torch.ops.aten
+    if func in (aten.mm.default, aten.addmm.default):
+        return True
+    if func is aten.bmm.default:
+        return args[0].shape[0] == 1
+    if func is aten.baddbmm.default:
+        return args[1].shape[0] == 1
+    return False
+
+
+def _dots_contexts():
+    """The (forward, recompute) contexts of ``dots``'s checkpoint: the
+    selective checkpointing of ``create_selective_checkpoint_contexts``
+    with ``dots_saveable`` as its policy, and one difference. The
+    non-reentrant recompute stops at the last tensor the backward saves
+    (early stop), so a product after it — a unit's last projection, whose
+    output only joins the residual — is never replayed; the forward counts
+    autograd's saves through a hook over the checkpoint's own and drops
+    the outputs past the last one, which JAX's partial evaluation never
+    keeps either. A kept output replays the product in the recompute; a
+    dropped one, or any other operator, runs again."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    store, seen = {}, {"ops": 0, "cut": 0}
+
+    def key(counts, func):
+        i = counts.get(func, 0)
+        counts[func] = i + 1
+        return func, i
+
+    class Save(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.counts = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            seen["ops"] += 1
+            if dots_saveable(func, args):
+                t = out.detach()
+                store[key(self.counts, func)] = (seen["ops"], t, t._version)
+            return out
+
+    class Replay(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.counts = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if dots_saveable(func, args):
+                hit = store.pop(key(self.counts, func), None)
+                if hit is not None:
+                    if hit[1]._version != hit[2]:
+                        raise RuntimeError(
+                            f"dots: the saved output of {func} was changed "
+                            "in place after the forward")
+                    return hit[1]
+            return func(*args, **(kwargs or {}))
+
+    class Forward:
+        def __enter__(self):
+            top = torch._C._autograd._top_saved_tensors_default_hooks(False)
+            pack, unpack = top
+
+            def counted(t):
+                seen["cut"] = seen["ops"]
+                return pack(t)
+
+            self.hooks = torch.autograd.graph.saved_tensors_hooks(counted,
+                                                                 unpack)
+            self.mode = Save()
+            self.hooks.__enter__()
+            self.mode.__enter__()
+
+        def __exit__(self, *exc):
+            self.mode.__exit__(*exc)
+            self.hooks.__exit__(*exc)
+            for k in [k for k, v in store.items() if v[0] > seen["cut"]]:
+                del store[k]
+
+    return Forward(), Replay()
+
+
+def _dots(fn, x, *args):
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(fn, x, *args, use_reentrant=False,
+                      context_fn=_dots_contexts)
+
+
+def _offload_resid(fn, x, *args):
+    """Checkpoint the unit on a host copy of its input (pinned when `x`
+    lies on the card): autograd keeps only that copy, whose gradient flows
+    back to `x` through the copy; the parameters stay where they are."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    host = torch.empty(x.shape, dtype=x.dtype, device="cpu",
+                       pin_memory=x.is_cuda)
+    host.copy_(x, non_blocking=x.is_cuda)
+    dev = x.device
+
+    def unit(h, *a):
+        return fn(h.to(dev, non_blocking=True), *a)
+
+    return checkpoint(unit, host, *args, use_reentrant=False)
+
+
+REMAT_POLICIES = {
+    "nothing": _nothing,
+    "dots": _dots,
+    "full": _full,
+    "offload_resid": _offload_resid,
+}
+
+
+def _resolve_policy(name):
+    """`name` → ``run(fn, x, *args)``, which returns ``fn(x, *args)`` and
+    keeps for the backward what the policy keeps (an unknown name raises
+    ``KeyError``, as the reference's lookup does)."""
+    return REMAT_POLICIES[name]
+
+
+def remat(cfg):
+    """The unit runner of a training forward: ``cfg.remat_policy``'s
+    while grad is enabled, else none (serving never recomputes)."""
+    import torch
+    run = _resolve_policy(cfg.remat_policy)
+    return run if torch.is_grad_enabled() else _full
 
 
 def _unstack(tree, repeat: int) -> list:
@@ -311,17 +479,27 @@ class Model:
         return x, caches
 
     def _run_stages_train(self, params, x, positions):
-        """(x, aux): aux sums each MoE value over the MoE layers, as the
-        JAX scan's per-stage sums do."""
+        """(x, aux): each repeat of a stage is one unit under ``remat``
+        (the JAX scan step under ``jax.checkpoint``); aux sums each MoE
+        value over a unit's blocks, then over the units, as the JAX scan's
+        per-stage sums do."""
         ropes = self._ropes(positions)
+        run = remat(self.cfg)
         aux_tot = {}
         for si, stage in enumerate(self.stages):
-            for layer_p in _unstack(params[f"stage_{si}"], stage.repeat):
-                for j, kind in enumerate(stage.kinds):
+            def unit(x, layer_p, _stage=stage):
+                auxs = {}
+                for j, kind in enumerate(_stage.kinds):
                     x, aux, _ = self._block_sequence(
-                        layer_p[f"b{j}"], x, kind, stage.moe, ropes, None)
+                        layer_p[f"b{j}"], x, kind, _stage.moe, ropes, None)
                     for k, v in aux.items():
-                        aux_tot[k] = aux_tot[k] + v if k in aux_tot else v
+                        auxs[k] = auxs[k] + v if k in auxs else v
+                return x, auxs
+
+            for layer_p in _unstack(params[f"stage_{si}"], stage.repeat):
+                x, aux = run(unit, x, layer_p)
+                for k, v in aux.items():
+                    aux_tot[k] = aux_tot[k] + v if k in aux_tot else v
         return x, aux_tot
 
     def _run_stages_decode(self, params, cache, x, pos: int):

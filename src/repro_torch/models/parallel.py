@@ -12,10 +12,14 @@ axis (``"model"``) stays local, and the leaf passes ``copy_to`` over every
 axis that replicates it. The SSM and RG-LRU mixers gather their leaves over
 both axes and compute replicated over ``"model"`` (mamba2's packed
 ``in_proj`` does not split column-wise); so does everything under
-``dp_over_model``, which makes ``"model"`` a batch axis. Each layer runs
-under ``torch.utils.checkpoint``: autograd keeps the layer's input, not its
-gathered weights, and the backward gathers them again (the reference's
-per-layer remat), so a rank holds one layer's gathered weights at a time.
+``dp_over_model``, which makes ``"model"`` a batch axis. Each layer (one
+repeat of its stage, with its gathers) runs under ``cfg.remat_policy``'s
+wrapper (``model.remat``): under ``nothing`` (the default) autograd keeps
+the layer's input, not its gathered weights, and the backward gathers them
+again, so a rank holds one layer's gathered weights at a time; ``dots``
+and ``offload_resid`` keep the gathers inside the recomputed unit too;
+``full`` keeps every layer's gathered weights, as the reference's
+``everything_saveable`` does.
 
 The layout at each site (``tp`` the size of the TP axis):
 
@@ -345,11 +349,11 @@ AUX = ("load_balance_loss", "router_z_loss", "drop_fraction")
 
 
 def _stages(model, lay, params, x, ropes, exec_mesh):
-    """Every layer under ``torch.utils.checkpoint`` → (x, aux summed over
+    """Every layer under the remat policy's wrapper → (x, aux summed over
     the MoE layers)."""
-    from torch.utils.checkpoint import checkpoint
-
     from ..core.split_state import leaf_paths
+    from .model import remat
+    run = remat(model.cfg)
     aux_tot = {}
     for si, stage in enumerate(model.stages):
         prefix = f"stage_{si}"
@@ -370,8 +374,7 @@ def _stages(model, lay, params, x, ropes, exec_mesh):
             return (x, *(aux[k] for k in AUX if k in aux))
 
         for r in range(stage.repeat):
-            out = checkpoint(layer, x, *(t[r] for t in layers),
-                             use_reentrant=False)
+            out = run(layer, x, *(t[r] for t in layers))
             x = out[0]
             for k, v in zip([k for k in AUX if stage.moe], out[1:]):
                 aux_tot[k] = aux_tot[k] + v if k in aux_tot else v

@@ -16,13 +16,14 @@ steps of ``dA`` near −1.6, and its backward then multiplies 0 by inf — a
 NaN gradient at the real chunk size 256. The forward values are the
 same (``exp(−inf) = 0`` where the reference writes 0).
 
-Memory (no remat): autograd keeps three (B, nh, L, L) f32 blocks a
-chunk — ``exp``'s output, ``C·Bᵀ`` and their product, 50 MB each at B 4,
-48 heads, L 256 — beside the chunk's f32 (B, L, nh, N) head copies of B
-and C and the conv taps' f32 inputs: the 12-layer full-width training run
-of ``chip_smoke.py`` (4 × 1,024 tokens) peaks at 26.6 GB on the card,
-~2 GB a layer, so the chunk body runs without ``torch.utils.checkpoint``
-at that depth (all 48 layers would not fit 80 GB without it).
+Memory: autograd keeps three (B, nh, L, L) f32 blocks a chunk —
+``exp``'s output, ``C·Bᵀ`` and their product, 50 MB each at B 4, 48 heads,
+L 256 — beside the chunk's f32 (B, L, nh, N) head copies of B and C and
+the conv taps' f32 inputs: ~2 GB a layer at 4 × 1,024 tokens. A training
+forward runs each layer under ``cfg.remat_policy`` (``models.model``;
+mamba2-780m's is ``nothing``, as the reference's), so only one layer's
+blocks are held at a time, in its recompute: the 48-layer step fits the
+card (``chip_smoke.py``'s remat phase).
 """
 from __future__ import annotations
 

@@ -60,7 +60,8 @@ def make_train_step(model, optimizer, *, lr_fn=None, grad_accum: int = 1,
     tree of ``DTensor``s on that mesh and `batch` is this rank's rows, the
     batch dim sharded over the mesh axes `batch_axes`; the step computes
     the one-device step's function with the reference's layout
-    (``_layout_step``).
+    (``_layout_step``). ``train_step.grads(state, batch)`` gives (loss,
+    metrics, gradients) without an update.
     """
     import torch
     lr_fn = lr_fn or lr_schedule
@@ -71,7 +72,7 @@ def make_train_step(model, optimizer, *, lr_fn=None, grad_accum: int = 1,
         with torch.enable_grad():
             loss, metrics = model.loss(tree_unflatten(params, live), batch)
             # a leaf the loss never reads (an encoder's token embedding)
-            # gets zeros, as from jax.grad
+            # gets zeros, as jax.grad gives it
             grads = torch.autograd.grad(
                 loss if scale is None else loss * scale, live,
                 allow_unused=True, materialize_grads=True)
@@ -121,6 +122,13 @@ def make_train_step(model, optimizer, *, lr_fn=None, grad_accum: int = 1,
         metrics["grad_norm"] = grad_norm
         return state, metrics
 
+    def grads(state, batch):
+        """(loss, metrics, gradients) of `batch` at `state`, which stays
+        as it is."""
+        with deterministic(state["step"].device):
+            return loss_and_grads(state["params"], batch)
+
+    train_step.grads = grads
     return train_step
 
 
@@ -141,9 +149,10 @@ def _layout_step(model, optimizer, lr_fn, loss_and_grads, shardings,
 
     1. the parameters go in as each rank's local shards (``to_local``);
        each layer all-gathers its own FSDP-sharded leaves just before it
-       runs and keeps its TP dims split. Layers run under
-       ``torch.utils.checkpoint``: autograd does not keep the gathered
-       weights, the backward gathers each layer's again;
+       runs and keeps its TP dims split. Layers run under the remat
+       policy's wrapper (``models.model.remat``): under ``nothing``
+       autograd does not keep the gathered weights, and the backward
+       gathers each layer's again;
     2. each rank's loss (of its batch rows, equal on every rank of the TP
        axis) is weighted by its share of the global loss's count over the
        batch axes (equal shares of an LM batch; an encoder's masked frames

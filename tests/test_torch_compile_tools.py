@@ -43,6 +43,19 @@ def _run(code: str, timeout: int = 600) -> dict:
     return json.loads(p.stdout.strip().splitlines()[-1])
 
 
+def _run_together(*codes, timeout: int = 600) -> list:
+    """``_run`` of each of `codes`, in processes running at once."""
+    env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu",
+           "OMP_NUM_THREADS": "2"}
+    procs = [subprocess.Popen([sys.executable, "-c", c], text=True, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for c in codes]
+    outs = [p.communicate(timeout=timeout) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-4000:]
+    return [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+
+
 # ---------------------------------------------------------------------------
 # configs.shapes (tests/test_configs.py::test_cell_matrix,
 # test_applicability_reasons)
@@ -415,6 +428,61 @@ def test_dryrun_skips_with_the_reference_reason(dryrun):
     r = dryrun[("hubert-xlarge", "decode_32k", "single")]
     assert r["status"] == "skipped"
     assert r["reason"] == "encoder-only arch: no decode step"
+
+
+# a small train cell on a (1, 1) mesh: gemma3-1b at full width, 12 layers
+# (two remat units of six blocks), 16 × 512 tokens, so that the step's
+# forward and backward (not the optimizer's update) set the peak
+REMAT_CELL = dict(seq_len=512, global_batch=16, n_layers=12)
+REMAT_POLICIES = ("nothing", "dots", "full")
+
+TREMAT = """
+import json
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch.dryrun import run_cell
+shape = ShapeSpec("train_remat", {seq_len}, {global_batch}, "train")
+recs = {{p: run_cell("gemma3-1b", "train_remat", "single", shape=shape,
+                     mesh_shape=(1, 1),
+                     overrides={{"remat_policy": p, "n_layers": {n_layers}}})
+        for p in {policies!r}}}
+print(json.dumps({{p: r["memory"]["peak_bytes_est"] if r["status"] == "ok"
+                  else r["error"] for p, r in recs.items()}}))
+"""
+
+# the reference's run_cell at the same cell: its shape table and production
+# mesh replaced in the subprocess by that shape and a (1, 1) mesh of one
+# host device
+JREMAT = """
+import json
+import jax
+import numpy as np
+import repro.launch.dryrun as d
+from repro.configs.shapes import ShapeSpec
+d.SHAPES = {{**d.SHAPES, "train_remat": ShapeSpec("train_remat", {seq_len},
+                                                 {global_batch}, "train")}}
+d.make_production_mesh = lambda multi_pod=False: jax.sharding.Mesh(
+    np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+recs = {{p: d.run_cell("gemma3-1b", "train_remat", "single",
+                       overrides={{"remat_policy": p,
+                                  "n_layers": {n_layers}}})
+        for p in {policies!r}}}
+print(json.dumps({{p: r["memory"]["peak_bytes_est"] if r["status"] == "ok"
+                  else r["error"] for p, r in recs.items()}}))
+"""
+
+
+def test_dryrun_peak_follows_remat_policy_in_the_reference_order():
+    """``run_cell(..., overrides={"remat_policy": p})`` traces a different
+    step for each policy: the predicted peak grows from ``nothing`` (the
+    unit inputs) to ``dots`` (their dot outputs too) to ``full`` (every
+    activation), as the reference's compiled peak does at the same cell."""
+    got, ref = _run_together(
+        TREMAT.format(policies=REMAT_POLICIES, **REMAT_CELL),
+        JREMAT.format(policies=REMAT_POLICIES, **REMAT_CELL))
+    assert all(isinstance(v, int) for v in got.values()), got
+    assert all(isinstance(v, int) for v in ref.values()), ref
+    assert got["nothing"] < got["dots"] < got["full"], got
+    assert ref["nothing"] < ref["dots"] < ref["full"], ref
 
 
 JSHARDS = """

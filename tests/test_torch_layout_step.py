@@ -4,7 +4,8 @@ llama4-scout, kimi-k2 (a dense first layer), mamba2-780m,
 recurrentgemma-9b and hubert-xlarge, on (2,2) with no flag,
 ``seq_shard_resid`` and ``dp_over_model``, on (1,4), where the kv heads do
 not divide, and on (1,8) with ``seq_shard_attn``, where the heads do not
-divide.
+divide; and on (2,2) under the remat policies other than ``nothing``
+(``full``, ``dots``, ``offload_resid``).
 
 Four and eight processes each take one step of every case from the same
 seed and batch: the loss, the metrics and the gradient norm, each rank's
@@ -12,7 +13,10 @@ gradient shards and the parameters after the step equal the one-device
 step's within ``tests/test_torch_train.py``'s tolerances. A spy on
 ``sharding.collectives.gather_param`` records every parameter gather of
 the step: none returns more than one layer's leaf, and
-``DTensor.full_tensor`` is never called."""
+``DTensor.full_tensor`` is never called. Under every policy but ``full``
+the backward gathers each layer's leaves again (a rank holds one layer's
+gathered weights at a time); under ``full`` it keeps them, so the step
+gathers each layer once: fewer gathers than under ``nothing``."""
 import json
 import os
 import subprocess
@@ -33,7 +37,9 @@ CASES4 = [(a, (2, 2), {}) for a in ALL] + \
                                                     "mamba2-780m",
                                                     "hubert-xlarge"]] + \
     [(a, (1, 4), {}) for a in ["gemma3-1b", "gemma2-9b",
-                               "llama4-scout-17b-a16e", "mamba2-780m"]]
+                               "llama4-scout-17b-a16e", "mamba2-780m"]] + \
+    [("gemma3-1b", (2, 2), {"remat_policy": p})
+     for p in ("full", "dots", "offload_resid")]
 CASES8 = [(a, (1, 8), {"seq_shard_attn": True})
           for a in ["gemma3-1b", "gemma2-9b", "llama4-scout-17b-a16e",
                     "kimi-k2-1t-a32b", "hubert-xlarge"]] + \
@@ -211,7 +217,12 @@ def results(tmp_path_factory):
 
 
 def _key(arch, shape, flags):
-    return f"{arch}-{tuple(shape)}-{'+'.join(sorted(flags)) or 'none'}"
+    names = [f"{k}={v}" if isinstance(v, str) else k
+             for k, v in sorted(flags.items())]
+    return f"{arch}-{tuple(shape)}-{'+'.join(names) or 'none'}"
+
+
+FULL = [c for c in CASES4 if c[2].get("remat_policy") == "full"]
 
 
 @pytest.mark.parametrize("case", [_key(*c) for c in CASES4 + CASES8])
@@ -234,9 +245,25 @@ def test_layout_step_matches_one_device(results, case):
         assert r["metrics"] == ranks[0]["metrics"]
 
 
-@pytest.mark.parametrize("case", [_key(*c) for c in CASES4 + CASES8])
+@pytest.mark.parametrize("case", [_key(*c) for c in CASES4 + CASES8
+                                  if c not in FULL])
 def test_layout_step_gathers_one_layer_at_a_time(results, case):
     for r in results[case]:
         assert r["gathers"] > 0
         assert r["gather_max"] <= r["layer_max"], r
         assert r["local_params"] < r["total_params"]
+
+
+@pytest.mark.parametrize("case", FULL)
+def test_full_keeps_every_layers_gathered_weights(results, case):
+    """Under ``full`` no layer is recomputed: each gather is still one
+    layer's leaf, but the step gathers fewer times than under ``nothing``
+    (whose backward gathers every layer again), and ``dots`` gathers as
+    often as ``nothing``."""
+    arch, shape, _ = case
+    full = results[_key(*case)]
+    nothing = results[_key(arch, shape, {})]
+    dots = results[_key(arch, shape, {"remat_policy": "dots"})]
+    for f, n, d in zip(full, nothing, dots):
+        assert 0 < f["gathers"] < n["gathers"] == d["gathers"]
+        assert f["gather_max"] <= f["layer_max"]
