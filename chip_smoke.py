@@ -31,6 +31,10 @@
                                          #   compile phase alone (its dry
                                          #   run then has no measured
                                          #   peaks to meet)
+    python3 chip_smoke.py --engine-only  # build, parity, the main path
+                                         #   alone (the checkpoint round,
+                                         #   its streaming restore and the
+                                         #   engine's fault paths)
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
@@ -59,7 +63,17 @@
    and compared bit for bit. The launch counts of K1-K3 must be > 0, and
    one leaf of each route (``params/stage_0/b0/mlp/wg`` and its f32
    moment ``opt/m/...``) re-encoded by the host oracle must give the same
-   chunk digests.
+   chunk digests. Step 2 is then restored again through
+   ``restore_streaming`` (``wait_frontier()`` and ``state()`` timed beside
+   the blocking restore): bit-exact on the card, its frontier the leaves
+   of the first two first-use classes (embed and block 0), K4 launched.
+   Those two leaves, saved through the device route into a fresh store
+   (two replicas), are restored onto the card bit-exact three ways: with
+   one encoded chunk object of the params leaf zeroed (the direct
+   placement's fallback), after a save of a changed copy dies at
+   ``rank0_after_fused_dispatch`` while K1-K3 run (``gc()`` then
+   ``fsck`` ok, ``latest_step()`` the last good step, the next save
+   commits), and from the buddy replica with the primary object deleted.
 4. The serving path: ``repro_torch.launch.serve.run`` serves full-width
    gemma3-1b in bf16 (8 requests, 2048-token prompts, 64 new tokens)
    uninterrupted, then again preempted at token 32 into a fresh workdir,
@@ -816,13 +830,14 @@ def main_path(dev, card: str, profile: bool = False):
         fail(f"only {free} bytes free under {store_dir}; need "
              f"{int(MIN_FREE_BYTES)} for two rounds of the state")
 
-    def policy(scan="auto", **codec):
+    def policy(scan="auto", durability=None, **codec):
         return CheckpointPolicy(
             mode="incremental",
             chunking=ChunkingPolicy(scheme="cdc", chunk_size=MiB,
                                     scan_backend=scan),
             pipeline=PipelinePolicy(io_threads=8),
-            durability=DurabilityPolicy(keepalive_s=60.0),
+            durability=DurabilityPolicy(keepalive_s=60.0,
+                                        **(durability or {})),
             codec=CodecPolicy(codec="raw", params_codec="byteplane-rle",
                               **codec))
 
@@ -877,14 +892,17 @@ def main_path(dev, card: str, profile: bool = False):
             restored, _ = mgr.restore(state, step=2)
             torch.cuda.synchronize()
         restore_s = time.monotonic() - t0
-        for (name, a), (_, b) in zip(leaf_paths(restored), leaves):
-            if not (a.device == b.device and a.dtype == b.dtype
-                    and a.shape == b.shape
-                    and torch.equal(bits(a), bits(b))):
-                fail(f"restored leaf {name} is not bit-exact")
+        _assert_state(restored, leaves, dev, "restore")
         say(f"restore step 2 onto {dev}: {restore_s:.3f} s, all "
             f"{len(leaves)} leaves bit-exact")
         del restored
+        stream_stats = streaming_restore(mgr, state, leaves, dev)
+        say(f"restore_streaming step 2 onto {dev}: frontier "
+            f"{stream_stats['frontier_s']:.3f} s "
+            f"({len(stream_stats['frontier'])} leaves), whole "
+            f"{stream_stats['whole_s']:.3f} s, blocking restore "
+            f"{restore_s:.3f} s; K4 launches "
+            f"{stream_stats['k4_launches']}")
         # the host oracle re-encodes one leaf of each device route (a bf16
         # params leaf through K2+K1+K3, its f32 moment through the
         # segmented K1 scan; each spans several scan segments): same chunk
@@ -916,6 +934,7 @@ def main_path(dev, card: str, profile: bool = False):
                         for n in sub_names) + ")")
         oracle.close()
         mgr.close()
+        fault_stats = engine_faults(sub, store_dir / "faults", policy, dev)
         stats = {"n_layers": MAIN_LAYERS,
                  "of_layers": gemma3_1b.CONFIG.n_layers,
                  "save1_s": save1_s, "save2_s": save2_s,
@@ -928,7 +947,9 @@ def main_path(dev, card: str, profile: bool = False):
                  "chunks_1": r1["chunks"], "changed_leaves": changed,
                  "snapshot1_s": r1["snapshot_s"],
                  "snapshot2_s": r2["snapshot_s"],
-                 "oracle_reencode_s": oracle_s, "profiled": profile,
+                 "oracle_reencode_s": oracle_s,
+                 "restore_streaming": stream_stats,
+                 "faults": fault_stats, "profiled": profile,
                  "card": card}
         if profile:
             stats["device_save2"] = prof2.summary(save2_s)
@@ -936,6 +957,180 @@ def main_path(dev, card: str, profile: bool = False):
         return state, launches, stats
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _assert_state(got, want_leaves, dev, what: str):
+    """Every leaf of `got` lies on `dev` and equals `want_leaves` (the
+    ``leaf_paths`` of the saved state) bit for bit."""
+    import torch
+
+    from repro_torch.core.split_state import leaf_paths
+    got = leaf_paths(got)
+    if [n for n, _ in got] != [n for n, _ in want_leaves]:
+        fail(f"{what}: the leaf names differ from the saved state's")
+    for (name, a), (_, b) in zip(got, want_leaves):
+        if not (a.device.type == dev.type and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(bits(a), bits(b))):
+            fail(f"{what}: leaf {name} is not bit-exact on {dev}")
+
+
+def streaming_restore(mgr, state, leaves, dev) -> dict:
+    """Restore step 2 again through ``restore_streaming``: time
+    ``wait_frontier()`` and then ``state()``; every leaf bit-equal to the
+    saved state and on the card; the frontier the leaves of the first
+    ``policy.restore.frontier_classes`` first-use classes and not every
+    leaf; K4 launched."""
+    from repro_torch.core.elastic import leaf_first_use_class
+    from repro_torch.kernels.ckpt_codec import byteplane as bp
+    k4_before = bp.inverse_launches
+    t0 = time.monotonic()
+    stream, _ = mgr.restore_streaming(state, step=2)
+    stream.wait_frontier()
+    _sync(dev)
+    frontier_s = time.monotonic() - t0
+    got = stream.state()
+    _sync(dev)
+    whole_s = time.monotonic() - t0
+    k4 = bp.inverse_launches - k4_before
+    _assert_state(got, leaves, dev, "restore_streaming")
+    del got
+    n_classes = mgr.policy.restore.frontier_classes
+    classes = sorted({leaf_first_use_class(n) for n, _ in leaves})
+    want = {n for n, _ in leaves
+            if leaf_first_use_class(n) in classes[:n_classes]}
+    frontier = list(stream.frontier_names)
+    if set(frontier) != want or len(frontier) != len(want):
+        fail(f"restore_streaming: frontier {sorted(frontier)} is not the "
+             f"first {n_classes} first-use classes {sorted(want)}")
+    if "params/embed" not in want or not any(
+            n.startswith("params/stage_0/b0/") for n in want) \
+            or len(want) >= len(leaves):
+        fail(f"restore_streaming: frontier {sorted(want)} is not embed "
+             "and block 0")
+    if k4 <= 0:
+        fail("restore_streaming: K4 (byteplane_inv) was not launched")
+    return {"frontier_s": frontier_s, "whole_s": whole_s,
+            "frontier": frontier, "frontier_classes": n_classes,
+            "leaves": len(leaves), "k4_launches": k4}
+
+
+def engine_faults(sub, root: Path, policy, dev) -> dict:
+    """The engine's fault paths on `sub` (one byteplane-rle params leaf and
+    its f32 moment), saved through the device route (`policy()`, two
+    replicas) into a fresh store under `root`, each restored onto `dev`
+    bit-exact:
+
+    1. one encoded chunk object of the params leaf zeroed: the direct
+       placement's crc gate fails and the verified path reads the replica;
+    2. a save of a changed `sub` dies at ``rank0_after_fused_dispatch``
+       while K1-K3 run: ``gc()`` leaves ``fsck`` ok, ``latest_step()`` is
+       the last good step, and the next save commits and restores;
+    3. the primary object of a params chunk deleted: the restore reads the
+       buddy replica."""
+    import dataclasses
+
+    from repro_torch.core import cas
+    from repro_torch.core import codec as codec_mod
+    from repro_torch.core.atomic import CrashInjector, CrashPoint
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.core.errors import AbortedError
+    from repro_torch.core.split_state import leaf_paths, map_leaves
+    from repro_torch.core.storage import Tier, TieredStore
+    shutil.rmtree(root, ignore_errors=True)
+    params_leaf = next(n for n, _ in leaf_paths(sub)
+                       if n.startswith("params/"))
+
+    # one writer rank: rank 0 writes the params leaf, so the crash point
+    # rank0_after_fused_dispatch is on its path (the moment is raw)
+    pol = dataclasses.replace(
+        policy(durability={"replicas": 2, "max_retries": 0, "retain": 4}),
+        n_writers=1)
+
+    def mk():
+        return CheckpointManager(TieredStore(Tier("fast", root)), pol,
+                                 device=dev)
+
+    def restore(mgr, step, want, what):
+        t0 = time.monotonic()
+        got, _ = mgr.restore(sub, step=step)
+        _sync(dev)
+        _assert_state(got, leaf_paths(want), dev, what)
+        return time.monotonic() - t0
+
+    def first_chunk(mgr, step):
+        """The digest of the params leaf's first encoded chunk."""
+        rec = mgr.load_manifest(step)["leaves"][params_leaf]["shards"][0]
+        if rec["codec"] not in codec_mod.CHUNK_ENCODED:
+            fail(f"faults: {params_leaf} was saved as {rec['codec']}")
+        return rec["chunks"][0]
+
+    out = {"leaf": params_leaf}
+    t0 = time.monotonic()
+    mgr = mk()
+    mgr.save(sub, 1)
+    out["save_s"] = time.monotonic() - t0
+    # 1. damage one encoded chunk object of the params leaf
+    obj = root / cas.object_rel(first_chunk(mgr, 1))
+    good = obj.read_bytes()
+    obj.write_bytes(b"\x00" * len(good))
+    out["damaged_restore_s"] = restore(mgr, 1, sub, "damaged chunk")
+    obj.write_bytes(good)
+    mgr.close()
+    # 2. a crash between the fused dispatch and chunk submission
+    sub2 = map_leaves(lambda t: t.clone(), sub)
+    changed = next(t for n, t in leaf_paths(sub2) if n == params_leaf)
+    changed.add_(1e-3)
+    _sync(dev)
+    before = read_counts()
+    t0 = time.monotonic()
+    try:
+        mk().save(sub2, 2,
+                  crash=CrashInjector("rank0_after_fused_dispatch"))
+        fail("faults: the save did not die at rank0_after_fused_dispatch")
+    except (CrashPoint, AbortedError) as e:
+        out["crash"] = type(e).__name__
+    out["crashed_save_s"] = time.monotonic() - t0
+    after = read_counts()
+    crash_launches = {k: after[k] - before[k]
+                      for k in ("gear_scan", "byteplane_fwd", "rle_emit")}
+    if any(v <= 0 for v in crash_launches.values()):
+        fail(f"faults: K1-K3 did not all run in the crashed save "
+             f"{crash_launches}")
+    out["crash_launches"] = crash_launches
+    mgr = mk()
+    gc_report = mgr.gc()
+    fsck = mgr.chunks.fsck(mgr._live_chunk_refs())
+    if not fsck["ok"]:
+        fail(f"faults: fsck after the crash and gc: {fsck}")
+    if mgr.latest_step() != 1:
+        fail(f"faults: latest_step() {mgr.latest_step()} after the crash, "
+             "not 1")
+    out["gc_swept"] = gc_report["cas"]["swept"]
+    out["after_crash_restore_s"] = restore(mgr, 1, sub, "after the crash")
+    t0 = time.monotonic()
+    mgr.save(sub2, 3)
+    out["recovered_save_s"] = time.monotonic() - t0
+    if mgr.latest_step() != 3:
+        fail("faults: the save after the crash did not commit")
+    out["recovered_restore_s"] = restore(mgr, 3, sub2, "after recovery")
+    # 3. the buddy replica, the primary object deleted
+    digest = first_chunk(mgr, 3)
+    obj = root / cas.object_rel(digest)
+    replica = root / cas.object_rel(digest, replica=1)
+    if not replica.exists():
+        fail(f"faults: no buddy replica {replica}")
+    obj.unlink()
+    out["replica_restore_s"] = restore(mgr, 3, sub2, "buddy replica")
+    mgr.close()
+    del sub2
+    shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4157,6 +4352,20 @@ def main() -> int:
         sh = sharding(dev, card)
         say(card)
         say(json.dumps({"sharding": sh}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if "--engine-only" in sys.argv[1:]:
+        reset_counts()
+        with phase("main_path"):
+            _, launches, stats = main_path(dev, card)
+        (out_dir / "chip_smoke_engine.json").write_text(
+            json.dumps({"card": card, "main_path": stats,
+                        "launches": launches}, indent=1))
+        say(json.dumps({"phase_s": PHASE_S}))
+        say(card)
+        say(json.dumps({"main_path": stats, "launches": launches}))
         say(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
