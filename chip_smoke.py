@@ -20,6 +20,9 @@
                                          #   under build/)
     python3 chip_smoke.py --families-only  # build, parity, the families
                                          #   phase alone (15 GB of disk)
+    python3 chip_smoke.py --zoo-serve-only  # build, parity, the zoo
+                                         #   serving phase alone (10 GB of
+                                         #   disk)
     python3 chip_smoke.py --sharding-only  # build, parity, the sharding
                                          #   phase alone
     python3 chip_smoke.py --parallel-only  # build, K7/K8 parity, the zoo
@@ -31,6 +34,10 @@
                                          #   compile phase alone (its dry
                                          #   run then has no measured
                                          #   peaks to meet)
+    python3 chip_smoke.py --compile-only --op-cost  # + C4's 30 serves
+                                         #   (decode tokens/s through the
+                                         #   operators, three ways; also
+                                         #   in a full run)
     python3 chip_smoke.py --engine-only  # build, parity, the main path
                                          #   alone (the checkpoint round,
                                          #   its streaming restore and the
@@ -97,7 +104,7 @@
 6. The reliability plane: a ``WeightPublisher`` on a ``CheckpointManager``
    (the checkpoint round's policy, retain 1) over a fast/slow store
    wrapped in a seeded ``FaultPlane`` publishes full-width gemma3-1b
-   params (``RELIABILITY_LAYERS`` (6) of 26 layers, bf16, seed 99) twice. Round 0 runs with the fast tier full
+   params (``RELIABILITY_LAYERS`` (2) of 26 layers, bf16, seed 99) twice. Round 0 runs with the fast tier full
    (persistent ENOSPC on its object writes) and latency on the slow tier,
    and must commit degraded; round 1 changes every 10th leaf under a
    transient EIO and a silent bit-rot on two named fast-tier object
@@ -147,13 +154,13 @@
    MQA window of 2,048 at B 8, S 4,096) within ``attn_err``'s bound, K7 at
    their widths (``FAMILY_RMS``: 1,536, mamba2's gated norm at 3,072,
    4,096), and the reduced configs on the card against the CPU. Then
-   ``serve.run`` serves mamba2-780m at full width, 24 of 48 layers (8
+   ``serve.run`` serves mamba2-780m at full width, 12 of 48 layers (8
    requests of 2,048-token prompts, 64 new tokens) and
    recurrentgemma-9b at full width, 3 of 38 layers (4,096-token prompts,
    past the window), each uninterrupted, preempted at token 32 and
    resumed: the resumed tokens must equal the uninterrupted run's. Then
-   ``preempt_resume`` trains mamba2-780m (6 of 48 layers, SSD chunks of
-   256) and hubert-xlarge (6 of 48 layers, encoder batches) at full
+   ``preempt_resume`` trains mamba2-780m (3 of 48 layers, SSD chunks of
+   256) and hubert-xlarge (3 of 48 layers, encoder batches) at full
    width with AdamW, batch 4 × 1024: finite losses, and the resumed run's
    ``params_digest`` equal to run A's. Launches are read per segment: K7
    (and K8 where there is attention) in the serves and steps, K1-K3 in
@@ -163,7 +170,26 @@
    restore numbers of each serve and the step, tokens/s, peak and
    ``restore_to_first_step_s`` of each training run. Its checkpoints go
    to ``build/chip_smoke_families`` (removed when it ends).
-9. The remat phase (``remat_phase``), after the families: full-width,
+9. The zoo served (``zoo_serving``): K8 and K7 at the phase's prefill
+   shapes against their plain versions (``ZOO_SERVE_K8``: B 8, gemma2-9b's
+   local and global layers at S 4,608 with its softcap and window;
+   ``ZOO_SERVE_RMS``), then ``serve.run`` serves, at full width with the
+   serving phase's traffic, stablelm-1.6b (2 of 24 layers),
+   starcoder2-3b (2 of 30), gemma2-9b (2 of 42: one local, one global;
+   4,608-token prompts past its window of 4,096), chameleon-34b (1 of 48)
+   and kimi-k2-1t-a32b (2 of 61: the dense layer and one MoE layer of 384
+   experts, 39.94 GB of bf16), each uninterrupted and, but for kimi-k2,
+   preempted at token 32 and resumed: the resumed tokens must equal the
+   uninterrupted run's, tokens must lie in the vocabulary, K8 must launch
+   once a layer and K7 ``k7_per_forward`` times a forward (the RMSNorm
+   configs; chameleon's q/k norms counted). Each config is then prefilled
+   with 2 × 64 tokens and decoded token by token from ``init_cache``
+   (kimi-k2 at the no-drop capacity): the same argmax, and the logits
+   within ``MESH_SERVE_RTOL`` of the largest. One ``{"zoo_serving": ...}``
+   line carries each config's prefill s, decode tokens/s, save s and
+   bytes, restore s, launches per run and peak device bytes. Stores go to
+   ``build/chip_smoke_zoo_serve``, each config's removed after it runs.
+10. The remat phase (``remat_phase``), after the families: full-width,
    full-depth gemma3-1b (26 layers, five remat units), one batch of 4 ×
    1,024 tokens, the same bf16 params, ``make_train_step(...).grads``
    under each of ``full``, ``nothing``, ``dots`` and ``offload_resid``
@@ -179,9 +205,9 @@
    ``{"remat": ...}`` line. Every training step of the script runs under
    its config's policy (``nothing``), so K7 and K8 run again in each
    step's recompute.
-10. The sharding phase (``sharding``), after the families: full-width
+11. The sharding phase (``sharding``), after the families: full-width
    gemma3-1b moved card → four CPU ranks → card, bit for bit.
-11. The parallel phase (``parallel``), after the zoo, on its checkpoint:
+12. The parallel phase (``parallel``), after the zoo, on its checkpoint:
    K8 with ``q_offset`` at llama4-scout's training shape and gemma2-9b's
    window of 4,096 at S 8,192, each split four ways over the sequence,
    within ``attn_err``'s bound (the no-offset control must fail it); four
@@ -193,7 +219,7 @@
    K4, K7 and K8 launched in every rank; then ``moe_apply_shard_map``
    over four ranks against ``moe_apply``'s routed experts on one. One
    ``{"parallel": ...}`` line.
-12. The compile phase (``compile``), last: the dry run
+13. The compile phase (``compile``), last: the dry run
    (``launch.dryrun.run_cell`` on fake tensors over a fake process group)
    traces each rank of the parallel phase's cell, whose predicted step
    peak must be within 25% of the rank's measured ``peak_device_bytes``
@@ -208,10 +234,10 @@
    ``core.aot_cache.AotCache`` (a miss) and loaded in a fresh process
    (``--aot-load``: a hit, outputs bit-equal to the eager prefill's, K7
    and K8 launched by the loaded program); the host µs of a K7 call
-   through the registered operator against the direct wrapper, and
-   serving's decode tokens/s both ways. One ``{"compile": ...}`` line;
-   the kernel rows carry ``launches_compile``.
-13. Prints one JSON line of per-kernel numbers (CUDA-event times at each
+   through the registered operator against the direct wrapper, and with
+   ``--op-cost`` serving's decode tokens/s both ways (30 serves). One
+   ``{"compile": ...}`` line; the kernel rows carry ``launches_compile``.
+14. Prints one JSON line of per-kernel numbers (CUDA-event times at each
    path's largest shapes, bounds from the bytes or operations each kernel
    needs, the plain version's and a library call's time; K7 also at every
    shape of ``K7_SHAPES`` with the L2 cold, each route forced; K8 also at the
@@ -269,11 +295,13 @@ F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 MIN_FREE_BYTES = 25e9
 MiB = 1 << 20
-# gemma3-1b's layers in the checkpoint round and the reliability phase, of
-# 26: one period of its five-local, one-global attention pattern (the full
-# depth would take the script past its time limit)
+# gemma3-1b's layers in the checkpoint round, of 26: one period of its
+# five-local, one-global attention pattern (the full depth would take the
+# script past its time limit); the reliability phase's, two, to keep the
+# script inside its limit (its publishes, syncs, scrub and inspections
+# move the params' bytes: 0.93 GB at six layers, 0.72 GB at two)
 MAIN_LAYERS = 6
-RELIABILITY_LAYERS = 6
+RELIABILITY_LAYERS = 2
 # K4's earlier design (tile sums, a per-plane tile scan, then the inverse:
 # three launches that read the input twice) is timed beside it where git
 # can show its source at this commit
@@ -2393,52 +2421,70 @@ def attn_err(got, ref) -> tuple:
     return err.max().item(), (err / bound).max().item()
 
 
+def k8_row_parity(dev, g, name: str, row: tuple, worst: dict):
+    """K8 (bf16, causal) at one row (B, S, H, K, D, window, softcap, q
+    scale, v scale) against its plain version: within ``ATTN_TOL`` and
+    ``attn_err``'s bound; where the row sets a softcap or a window, the
+    plain output with it switched off must fail that bound, so a K8 that
+    ignored it would. Records the errors in `worst`."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    B, S, H, K, D, window, cap, qs, vs = row
+    bf = torch.bfloat16
+    q = (torch.randn((B, S, H, D), generator=g, device=dev) * qs).to(bf)
+    k = torch.randn((B, S, K, D), generator=g, device=dev).to(bf)
+    v = (torch.randn((B, S, K, D), generator=g, device=dev) * vs).to(bf)
+    kw = dict(causal=True, window=window, softcap=cap)
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    err, rel = attn_err(fa.flash_attention(q, k, v, **kw), ref)
+    if not (err <= ATTN_TOL["bfloat16"] and rel <= 1.0):
+        fail(f"K8 at {name} {(B, S, H, K, D)} {kw}: max abs err {err} "
+             f"(> {ATTN_TOL['bfloat16']}?), {rel} of the relative bound")
+    worst[f"k8_{name}"] = err
+    worst[f"k8_{name}_of_bound"] = rel
+    for off in [o for o, on in (("softcap", cap), ("window", window)) if on]:
+        _, moved = attn_err(fa.flash_attention_plain(
+            q, k, v, **{**kw, off: 0}), ref)
+        if not moved > 1.0:
+            fail(f"K8 at {name}: the plain output without the {off} is "
+                 f"within the bound ({moved} of it)")
+        worst[f"k8_{name}_no_{off}_of_bound"] = moved
+    del q, k, v, ref
+    torch.cuda.empty_cache()
+
+
+def k7_row_parity(dev, g, name: str, n: int, d: int, worst: dict):
+    """K7 (bf16) over `n` rows of `d` against its plain version, within
+    ``RMS_TOL``; records the error in `worst`."""
+    import torch
+
+    from repro_torch.kernels.rmsnorm import ops as rn
+    bf = torch.bfloat16
+    x = torch.randn((n, d), generator=g, device=dev).to(bf)
+    s = (torch.randn((d,), generator=g, device=dev) * 0.1).to(bf)
+    err = (rn.rmsnorm_fused(x, s).float()
+           - rn.rmsnorm_plain(x, s).float()).abs().max().item()
+    if not err <= RMS_TOL["bfloat16"]:
+        fail(f"K7 at {name} {(n, d)}: max abs err {err} > "
+             f"{RMS_TOL['bfloat16']}")
+    worst[f"k7_{name}"] = err
+
+
 def zoo_parity(dev) -> dict:
     """K8 and K7 against their plain versions at the new configs' path
     shapes (bf16, ``RMS_TOL``/``ATTN_TOL``, the ``tests/test_kernels.py``
     tolerances; K8 also within ``attn_err``'s bound relative to the plain
     output). Where a row sets a softcap or a window, the plain output with
-    it switched off must fail that bound, so a K8 that ignored it would."""
+    it switched off must fail that bound (``k8_row_parity``)."""
     import torch
-
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.rmsnorm import ops as rn
     g = torch.Generator(device=dev)
     g.manual_seed(17)
-    bf = torch.bfloat16
     worst = {}
-    for name, (B, S, H, K, D, window, cap, qs, vs) in ZOO_ATTN.items():
-        q = (torch.randn((B, S, H, D), generator=g, device=dev) * qs).to(bf)
-        k = torch.randn((B, S, K, D), generator=g, device=dev).to(bf)
-        v = (torch.randn((B, S, K, D), generator=g, device=dev) * vs).to(bf)
-        kw = dict(causal=True, window=window, softcap=cap)
-        ref = fa.flash_attention_plain(q, k, v, **kw)
-        err, rel = attn_err(fa.flash_attention(q, k, v, **kw), ref)
-        if not (err <= ATTN_TOL["bfloat16"] and rel <= 1.0):
-            fail(f"K8 at {name} {(B, S, H, K, D)} {kw}: max abs err {err} "
-                 f"(> {ATTN_TOL['bfloat16']}?), {rel} of the relative bound")
-        worst[f"k8_{name}"] = err
-        worst[f"k8_{name}_of_bound"] = rel
-        for off in [o for o, on in (("softcap", cap), ("window", window))
-                    if on]:
-            _, moved = attn_err(fa.flash_attention_plain(
-                q, k, v, **{**kw, off: 0}), ref)
-            if not moved > 1.0:
-                fail(f"K8 at {name}: the plain output without the {off} is "
-                     f"within the bound ({moved} of it)")
-            worst[f"k8_{name}_no_{off}_of_bound"] = moved
-        del q, k, v, ref
-        torch.cuda.empty_cache()
+    for name, row in ZOO_ATTN.items():
+        k8_row_parity(dev, g, name, row, worst)
     for name, (n, d) in ZOO_RMS.items():
-        x = torch.randn((n, d), generator=g, device=dev).to(bf)
-        s = (torch.randn((d,), generator=g, device=dev) * 0.1).to(bf)
-        err = (rn.rmsnorm_fused(x, s).float()
-               - rn.rmsnorm_plain(x, s).float()).abs().max().item()
-        if not err <= RMS_TOL["bfloat16"]:
-            fail(f"K7 at {name} {(n, d)}: max abs err {err} > "
-                 f"{RMS_TOL['bfloat16']}")
-        worst[f"k7_{name}"] = err
-        del x
+        k7_row_parity(dev, g, name, n, d, worst)
     say(f"zoo parity: K8 at {len(ZOO_ATTN)} and K7 at {len(ZOO_RMS)} path "
         f"shapes of the new configs within tolerance; worst "
         f"{json.dumps(worst)}")
@@ -2629,15 +2675,17 @@ def zoo(dev, card: str, profile: bool = False, keep: bool = False) -> dict:
 # phase 8 — the SSM, RG-LRU and encoder families
 # ---------------------------------------------------------------------------
 
-# served at full width: (layers, prompt length); mamba2-780m at 24 of 48,
+# served at full width: (layers, prompt length); mamba2-780m at 12 of 48,
 # recurrentgemma-9b at 3 of 38 (RG-LRU, RG-LRU, local attention); prompts
 # past recurrentgemma's window of 2,048, so that the local layers' ring
-# wraps (48 and 6 layers until the parallel phase joined the script; cut
-# to keep it inside its limit)
-FAMILY_SERVE = {"mamba2-780m": (24, 2048), "recurrentgemma-9b": (3, 4096)}
+# wraps (mamba2 at 48 layers until the parallel phase joined the script,
+# 24 until the zoo serving phase did; cut to keep it inside its limit)
+FAMILY_SERVE = {"mamba2-780m": (12, 2048), "recurrentgemma-9b": (3, 4096)}
 # trained at full width through ``preempt_resume``: layers of 48 (12 until
-# the parallel phase joined the script; cut to keep it inside its limit)
-FAMILY_TRAIN = {"mamba2-780m": 6, "hubert-xlarge": 6}
+# the parallel phase joined the script, 6 until the zoo serving phase did;
+# cut to keep it inside its limit; mamba2-780m trains at all 48 layers in
+# the remat phase)
+FAMILY_TRAIN = {"mamba2-780m": 3, "hubert-xlarge": 3}
 # K8 at the families' path shapes, bf16, held against its plain version
 # and timed: (B, S, H, K, D, window, causal); hubert's training steps at
 # head dim 80 (the D 128 instantiation, ``kernel_dim``) and recurrentgemma's
@@ -2757,86 +2805,104 @@ def family_reference(dev, atol: float = 1e-4) -> dict:
     return out
 
 
-def family_serve(dev, arch: str, layers: int, prompt_len: int,
-                 root: Path, card: str, profile: bool = False) -> dict:
+def serve_runs(dev, arch: str, layers: int, prompt_len: int, root: Path,
+               card: str, profile: bool = False, preempt: bool = True,
+               what: str = "families serve") -> dict:
     """``serve.run`` of `arch` at full width, `layers` deep: 8 requests of
-    `prompt_len` tokens, 64 new, greedy; uninterrupted, then preempted at
-    token 32, then resumed. The resumed tokens must equal the
-    uninterrupted run's; K7 (and K8 where the config has attention) must
-    launch in the uninterrupted run. Launches are read per run. `profile`
-    traces the uninterrupted run (device and host)."""
+    `prompt_len` tokens, 64 new, greedy; uninterrupted, then (with
+    `preempt`) preempted at token 32 and resumed. The resumed tokens must
+    equal the uninterrupted run's, the preempted run's before token 32;
+    tokens must lie in the vocabulary; K7 (where the config's norm is
+    RMSNorm) and K8 (where it has attention) must launch in the
+    uninterrupted run. Launches are read per run, and the uninterrupted
+    run's peak device bytes. `profile` traces the uninterrupted run
+    (device and host)."""
     import numpy as np
+    import torch
 
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     kw = dict(SERVE, prompt_len=prompt_len, n_layers=layers)
+    plan = [("uninterrupted", {})]
+    if preempt:
+        plan += [("preempted", {"preempt_at": PREEMPT_AT}), ("resumed", {})]
     runs, launches = {}, {}
     t0 = time.monotonic()
-    for name, extra in (("uninterrupted", {}), ("preempted",
-                                                {"preempt_at": PREEMPT_AT}),
-                        ("resumed", {})):
+    for name, extra in plan:
         wd = root / arch / ("full" if name == "uninterrupted" else "pre")
         reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
         with DeviceProfile(profile and name == "uninterrupted",
                            host=True) as prof:
             t1 = time.monotonic()
             runs[name] = serve.run(arch, workdir=str(wd), device=dev, **kw,
                                    **extra)
             runs[name]["wall_s"] = time.monotonic() - t1
+        runs[name]["peak"] = torch.cuda.max_memory_allocated(dev)
         if profile and name == "uninterrupted":
             runs[name]["device"] = prof.summary(runs[name]["wall_s"])
         launches[name] = read_counts()
-    full, pre, res = runs["uninterrupted"], runs["preempted"], runs["resumed"]
+    full = runs["uninterrupted"]
+    pre, res = runs.get("preempted"), runs.get("resumed")
     cfg = get_config(arch)
     toks = full["tokens"]
-    if not (full["status"] == res["status"] == "completed"
-            and pre["status"] == "preempted"
+    if not (full["status"] == "completed"
             and toks.shape == (kw["n_requests"], kw["gen_len"])
             and ((toks >= 0) & (toks < cfg.vocab_size)).all()):
-        fail(f"{arch} serving ended {full['status']}/{pre['status']}/"
-             f"{res['status']} or gave tokens out of range")
-    if not np.array_equal(pre["tokens"][:, :PREEMPT_AT],
-                          toks[:, :PREEMPT_AT]):
-        fail(f"{arch}: the preempted run's tokens differ before the "
-             "preemption")
-    if not np.array_equal(res["tokens"], toks):
-        fail(f"{arch}: the resumed run's tokens differ from the "
-             "uninterrupted run's")
-    need = ["rmsnorm"] + (["flash_attention"]
-                          if any(k.startswith("attn") for k in
-                                 cfg.pattern) else [])
+        fail(f"{arch} serving ended {full['status']} or gave tokens out of "
+             "range")
+    if preempt:
+        if not (pre["status"] == "preempted"
+                and res["status"] == "completed"):
+            fail(f"{arch} preempted/resumed serving ended {pre['status']}/"
+                 f"{res['status']}")
+        if not np.array_equal(pre["tokens"][:, :PREEMPT_AT],
+                              toks[:, :PREEMPT_AT]):
+            fail(f"{arch}: the preempted run's tokens differ before the "
+                 "preemption")
+        if not np.array_equal(res["tokens"], toks):
+            fail(f"{arch}: the resumed run's tokens differ from the "
+                 "uninterrupted run's")
+    need = (["rmsnorm"] if cfg.norm == "rmsnorm" else []) + \
+        (["flash_attention"] if any(k.startswith("attn")
+                                    for k in cfg.pattern) else [])
     for k in need:
         if launches["uninterrupted"][k] <= 0:
             fail(f"kernel {k} was not launched serving {arch}")
     stats = {"arch": arch, "n_layers": layers, "of_layers": cfg.n_layers,
              "n_requests": kw["n_requests"], "prompt_len": prompt_len,
-             "gen_len": kw["gen_len"], "preempt_at": PREEMPT_AT,
+             "gen_len": kw["gen_len"],
+             "preempt_at": PREEMPT_AT if preempt else None,
              "prefill_s": full["prefill_s"],
              "decode_tok_per_s": full["tok_per_s"],
              "decode_s": full["decode_s"],
              "uninterrupted_s": full["wall_s"],
-             "save_s": pre["save_s"], "save_bytes": pre["save_bytes"],
-             "restore_s": res["restore_s"],
-             "resumed_decode_tok_per_s": res["tok_per_s"],
-             "phase_s": time.monotonic() - t0, "token_exact": True,
+             "peak_device_bytes": full["peak"],
+             "save_s": pre and pre["save_s"],
+             "save_bytes": pre and pre["save_bytes"],
+             "restore_s": res and res["restore_s"],
+             "resumed_decode_tok_per_s": res and res["tok_per_s"],
+             "phase_s": time.monotonic() - t0, "token_exact": preempt,
              "launches": launches, "card": card}
     if profile:
         stats["device_uninterrupted"] = full["device"]
-    say(f"families serve {arch} ({layers} layers): prefill "
+    cr = (f"preempt save {stats['save_s']:.3f} s / {stats['save_bytes']} "
+          f"bytes, restore {stats['restore_s']:.3f} s; resumed tokens "
+          "identical" if preempt else "no preempt")
+    say(f"{what} {arch} ({layers} layers): prefill "
         f"{stats['prefill_s']:.3f} s, decode {stats['decode_tok_per_s']:.1f}"
-        f" tok/s, preempt save {stats['save_s']:.3f} s / "
-        f"{stats['save_bytes']} bytes, restore {stats['restore_s']:.3f} s; "
-        f"resumed tokens identical; launches {json.dumps(launches)}")
+        f" tok/s, peak {stats['peak_device_bytes']} bytes, {cr}; launches "
+        f"{json.dumps(launches)}")
     return stats
 
 
 def families(dev, card: str, profile: bool = False) -> dict:
-    """The SSM, RG-LRU and encoder families at full width: ``family_serve``
-    of mamba2-780m (24 of 48 layers, 2,048-token prompts) and
+    """The SSM, RG-LRU and encoder families at full width: ``serve_runs``
+    of mamba2-780m (12 of 48 layers, 2,048-token prompts) and
     recurrentgemma-9b (3 of 38 layers, 4,096-token prompts);
     ``preempt_resume`` of
-    mamba2-780m (6 of 48 layers: SSD chunks of 256, whose gradient the
-    reference gives as NaN) and hubert-xlarge (6 of 48 layers, encoder
+    mamba2-780m (3 of 48 layers: SSD chunks of 256, whose gradient the
+    reference gives as NaN) and hubert-xlarge (3 of 48 layers, encoder
     batches, K8 at head dim 80) with AdamW, each resumed to the
     uninterrupted run's ``params_digest``. Launches are read per segment:
     K7/K8 in the serves and steps, K1-K3 in the training saves, K4 in the
@@ -2857,8 +2923,7 @@ def families(dev, card: str, profile: bool = False) -> dict:
     out = {"serve": {}, "train": {}, "launches": {}, "card": card}
     try:
         for arch, (layers, prompt) in FAMILY_SERVE.items():
-            st = family_serve(dev, arch, layers, prompt, root, card,
-                              profile)
+            st = serve_runs(dev, arch, layers, prompt, root, card, profile)
             out["serve"][arch] = st
             for seg, c in st["launches"].items():
                 out["launches"][f"{arch}_serve_{seg}"] = c
@@ -2899,6 +2964,252 @@ def families(dev, card: str, profile: bool = False) -> dict:
     out["k8"] = k8_shapes(dev, g, FAMILY_K8)
     out["k7"] = k7_shapes(dev, g, kernels={}, shapes=FAMILY_RMS)
     say(f"families: K8 {json.dumps(out['k8'])}; K7 {json.dumps(out['k7'])}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9 — the zoo served at full width through ``serve.run``
+# ---------------------------------------------------------------------------
+
+# served at full width: (layers, prompt length, preempted and resumed);
+# gemma2-9b one (local, global) pair with prompts past its window of 4,096
+# (the ring wraps), chameleon-34b one layer of 8,192, kimi-k2 its dense
+# first layer and one MoE layer (39.94 GB of bf16: expert stacks of 11.27
+# GB, 5.6 G elements a leaf) uninterrupted only: its serving save, ~40 GB
+# at the serving saves' ~0.4 GB/s, would take ~100 s of the script's limit.
+# stablelm-1.6b (24 layers) and starcoder2-3b (30) are cut to their first
+# two to keep the script inside its limit: a GB of serving state costs
+# ~6.5 s here (the save, its drain to the throttled slow tier as the run
+# ends, the restore), and the phase took 125 s at 24 and 8 layers, 80 s at
+# 6 and 4
+ZOO_SERVE = {"stablelm-1.6b": (2, 2048, True),
+             "starcoder2-3b": (2, 2048, True),
+             "gemma2-9b": (2, 4608, True),
+             "chameleon-34b": (1, 2048, True),
+             "kimi-k2-1t-a32b": (2, 2048, False)}
+# K8 at these prefills' shapes, bf16, causal: (B, S, H, K, D, window,
+# softcap, q scale, v scale) as in ``ZOO_ATTN`` (gemma2's q scaled so its
+# logits reach the softcap)
+ZOO_SERVE_K8 = {
+    "stablelm-1.6b": (8, 2048, 32, 32, 64, 0, 0.0, 1.0, 1.0),
+    "starcoder2-3b": (8, 2048, 24, 2, 128, 0, 0.0, 1.0, 1.0),
+    "gemma2-9b_local": (8, 4608, 16, 8, 256, 4096, 50.0, 16.0, 0.25),
+    "gemma2-9b_global": (8, 4608, 16, 8, 256, 0, 50.0, 16.0, 0.25),
+    "chameleon-34b": (8, 2048, 64, 8, 128, 0, 0.0, 1.0, 1.0),
+    "kimi-k2-1t-a32b": (8, 2048, 64, 8, 128, 0, 0.0, 1.0, 1.0)}
+# K7 at the RMSNorm configs' prefill norms (rows, D), chameleon's q/k norms
+# over heads of 128 among them; stablelm-1.6b and starcoder2-3b are
+# LayerNorm configs (plain ops in both packages: no K7 on their path)
+ZOO_SERVE_RMS = {"gemma2-9b": (8 * 4608, 3584),
+                 "chameleon-34b": (8 * 2048, 8192),
+                 "chameleon-34b_q_norm": (8 * 2048 * 64, 128),
+                 "chameleon-34b_k_norm": (8 * 2048 * 8, 128),
+                 "kimi-k2-1t-a32b": (8 * 2048, 7168)}
+# prefill <-> decode at full width: B x S tokens prefilled, and the same
+# tokens decoded one at a time from ``init_cache``; the last logits held
+# within MESH_SERVE_RTOL of the largest (bf16 serving), the argmax equal;
+# MoE at the no-drop capacity, as ``tests/test_models_smoke.py``
+ZOO_PD = (2, 64)
+ZOO_SERVE_MIN_FREE_BYTES = 10e9     # chameleon's 3.6 GB serving save
+
+
+def k7_per_forward(cfg) -> int:
+    """K7 launches in one forward of an attention-only decoder: each
+    block's input and MLP norms, its post norms and its q/k norms where the
+    config has them, and the final norm; none for a LayerNorm config."""
+    if cfg.norm != "rmsnorm":
+        return 0
+    return 1 + cfg.n_layers * (2 + 2 * cfg.post_norm + 2 * cfg.qk_norm)
+
+
+def zoo_serve_parity(dev) -> dict:
+    """K8 and K7 against their plain versions at the zoo serving phase's
+    prefill shapes (``ZOO_SERVE_K8``, ``ZOO_SERVE_RMS``; bf16, as
+    ``zoo_parity``). gemma2-9b's plain scores at B 8, S 4,608 are 10.9 GB
+    a tensor."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(25)
+    worst = {}
+    for name, row in ZOO_SERVE_K8.items():
+        k8_row_parity(dev, g, name, row, worst)
+    for name, (n, d) in ZOO_SERVE_RMS.items():
+        k7_row_parity(dev, g, name, n, d, worst)
+    say(f"zoo serving parity: K8 at {len(ZOO_SERVE_K8)} and K7 at "
+        f"{len(ZOO_SERVE_RMS)} prefill shapes within tolerance; worst "
+        f"{json.dumps(worst)}")
+    return worst
+
+
+def prefill_decode(dev, arch: str, layers: int) -> dict:
+    """`arch` at full width, `layers` deep, weights from seed 0: ``ZOO_PD``
+    tokens prefilled, and decoded one at a time from ``init_cache``; the
+    prefill's logits and the last decode step's must have the same argmax
+    and differ by at most ``MESH_SERVE_RTOL`` of the largest |logit|.
+
+    A MoE config's top-k choice is discontinuous: where a position's k-th
+    and (k+1)-th router probabilities lie closer than the two paths'
+    bf16-rounded inputs move them, the paths may route it to other experts.
+    Where the last position's experts differ at some MoE layer, that layer
+    must show such a near tie (its margin below the largest difference of
+    the two paths' probabilities there), and the last step is decoded again
+    from the same cache with the prefill's experts at every MoE layer
+    (their probabilities as weights): that step's logits are the ones held
+    to the bound."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.split_state import map_leaves
+    from repro_torch.models import Model
+    from repro_torch.models import moe as moe_mod
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    model = Model(cfg)
+    B, S = ZOO_PD
+    g = torch.Generator(device=dev)
+    g.manual_seed(26)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                         device=dev, dtype=torch.int32)
+    # each ``_top_k`` call's probabilities and experts (one call a MoE
+    # layer and forward); `forced` experts replace the next calls' own
+    top_k, routed, forced = moe_mod._top_k, [], []
+
+    def spy(probs, k):
+        w, i = top_k(probs, k)
+        if forced:
+            i = forced.pop(0).reshape(i.shape)
+            w = probs.gather(-1, i)
+        routed.append((probs.detach(), i))
+        return w, i
+
+    t0 = time.monotonic()
+    moe_mod._top_k = spy
+    try:
+        with torch.no_grad():
+            params = model.init(seed=0, device=dev)
+            pf, _ = model.prefill(params, toks)
+            n_moe = len(routed)
+            cache = model.init_cache(B, S, device=dev)
+            for t in range(S - 1):
+                _, cache = model.decode_step(params, cache, toks[:, t])
+            before = map_leaves(torch.clone, cache) if n_moe else None
+            dec, cache = model.decode_step(params, cache, toks[:, -1])
+            layers_routed = []
+            for (pp, ip), (pd, id_) in zip(routed[:n_moe],
+                                           routed[-n_moe:] if n_moe
+                                           else []):
+                pp, ip = (r.reshape(B, S, -1)[:, -1] for r in (pp, ip))
+                pd, id_ = pd.reshape(B, -1), id_.reshape(B, -1)
+                srt = pp.sort(-1, descending=True).values
+                k = cfg.moe.top_k
+                layers_routed.append({
+                    "experts": ip,
+                    "experts_equal": [set(a.tolist()) == set(b.tolist())
+                                      for a, b in zip(ip, id_)],
+                    "prefill_margin": (srt[:, k - 1] - srt[:, k]).tolist(),
+                    "prob_max_abs_diff": (pp - pd).abs().amax(-1).tolist()})
+            held = dec
+            if not all(all(r["experts_equal"]) for r in layers_routed):
+                forced[:] = [r["experts"] for r in layers_routed]
+                held, _ = model.decode_step(params, before, toks[:, -1])
+            del params, cache, before
+    finally:
+        moe_mod._top_k = top_k
+    torch.cuda.synchronize(dev)
+    top = pf.abs().max().item()
+    err = (pf - held).abs().max().item()
+    same = torch.equal(pf.argmax(-1), dec.argmax(-1)) and \
+        torch.equal(pf.argmax(-1), held.argmax(-1))
+    out = {"tokens": [B, S], "max_abs_err": err, "max_abs_logit": top,
+           "of_largest": err / top, "argmax_equal": same,
+           "seconds": time.monotonic() - t0}
+    ties = True
+    if layers_routed:
+        for r in layers_routed:
+            del r["experts"]
+            ties &= all(eq or m <= d for eq, m, d in zip(
+                r["experts_equal"], r["prefill_margin"],
+                r["prob_max_abs_diff"]))
+        out["routing"] = layers_routed
+        out["forced_prefill_experts"] = held is not dec
+        if held is not dec:
+            out["own_routing_max_abs_err"] = (pf - dec).abs().max().item()
+    say(f"zoo prefill/decode {arch} ({layers} layers): {json.dumps(out)}")
+    if not (torch.isfinite(pf).all() and torch.isfinite(held).all()
+            and same and err <= MESH_SERVE_RTOL * top and ties):
+        fail(f"{arch}: prefill and step-by-step decode disagree at full "
+             f"width: {json.dumps(out)} (bound {MESH_SERVE_RTOL} of the "
+             "largest logit, the same argmax; experts that differ only at "
+             "a near tie)")
+    return out
+
+
+def zoo_serving(dev, card: str, profile: bool = False) -> dict:
+    """stablelm-1.6b, starcoder2-3b, gemma2-9b, chameleon-34b and
+    kimi-k2-1t-a32b served at full width through ``serve.run``
+    (``serve_runs``, at the depths of ``ZOO_SERVE``): uninterrupted, and but
+    for kimi-k2 preempted at token 32 and resumed token for token. In the
+    uninterrupted run K8 must launch once a layer (the prefill; decode is
+    PyTorch ops, as in the reference) and K7 exactly ``k7_per_forward``
+    times a forward (chameleon's q/k norms included). Then each config's
+    ``prefill_decode``. The kernels are first held to their plain versions
+    at the phase's shapes (``zoo_serve_parity``). The stores go to
+    ``build/chip_smoke_zoo_serve``, each config's removed after it runs."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    root = ROOT / "build" / "chip_smoke_zoo_serve"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    if free < ZOO_SERVE_MIN_FREE_BYTES:
+        fail(f"only {free} bytes free under {root}; need "
+             f"{int(ZOO_SERVE_MIN_FREE_BYTES)} for the serving saves")
+    shm = Path("/dev/shm") / f"repro-bb-{os.getpid()}"
+    os.environ["REPRO_CKPT_KEEPALIVE_S"] = "60"
+    out = {"serve": {}, "prefill_decode": {}, "launches": {}, "card": card}
+    try:
+        t0 = time.monotonic()
+        out["parity"] = zoo_serve_parity(dev)
+        out["seconds"] = {"parity": time.monotonic() - t0}
+        t0 = time.monotonic()
+        for arch, (layers, prompt, preempt) in ZOO_SERVE.items():
+            st = serve_runs(dev, arch, layers, prompt, root, card, profile,
+                            preempt, what="zoo serve")
+            cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+            want = {"rmsnorm": SERVE["gen_len"] * k7_per_forward(cfg),
+                    "flash_attention": sum(k.startswith("attn")
+                                           for k in cfg.layer_kinds)}
+            for k, n in want.items():
+                if st["launches"]["uninterrupted"][k] != n:
+                    fail(f"serving {arch}: {k} launched "
+                         f"{st['launches']['uninterrupted'][k]} times, "
+                         f"expected {n}")
+            # the serving path reports no MoE statistics (the prefill's
+            # aux values are dropped, as in the reference)
+            st["drop_fraction"] = None
+            out["serve"][arch] = st
+            for seg, c in st["launches"].items():
+                out["launches"][f"{arch}_{seg}"] = c
+            shutil.rmtree(root / arch, ignore_errors=True)
+            shutil.rmtree(shm / arch, ignore_errors=True)
+            torch.cuda.empty_cache()
+            out["prefill_decode"][arch] = prefill_decode(dev, arch, layers)
+            torch.cuda.empty_cache()
+            out["seconds"][arch] = time.monotonic() - t0
+            say(f"zoo serve {arch}: {out['seconds'][arch]:.3f} s in all")
+            t0 = time.monotonic()
+    finally:
+        os.environ.pop("REPRO_CKPT_KEEPALIVE_S", None)
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(shm, ignore_errors=True)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4056,7 +4367,7 @@ def _spread(xs) -> dict:
     return {"median": med, "min": xs[0], "max": xs[-1], "n": n}
 
 
-def op_cost(dev) -> dict:
+def op_cost(dev, serves: bool = False) -> dict:
     """The registered operators' host cost, three ways, alternating in
     ``OP_COST_ROUNDS`` rounds: "op" forces every K7 call through the
     dispatcher (``rn.untraced`` false), "entry" is the model's entry as it
@@ -4064,9 +4375,10 @@ def op_cost(dev) -> dict:
     on an untraced tensor), "direct" calls the kernels' wrappers with no
     operator at all (the path before the operators). Host µs a K7 call
     at the decode step's block-norm shape (8 rows of 1,152, bf16,
-    ``OP_COST_CALLS`` calls a round), and serving's decode tokens/s (one
-    serving run a way a round, ``OP_COST_SERVE``); medians with their min
-    and max."""
+    ``OP_COST_CALLS`` calls a round); with `serves` (``--op-cost``) also
+    serving's decode tokens/s (one serving run a way a round,
+    ``OP_COST_SERVE``: 30 serves, ~50 s, a measurement with no check);
+    medians with their min and max."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa
@@ -4089,7 +4401,9 @@ def op_cost(dev) -> dict:
             us[k].append((time.perf_counter() - t0) / OP_COST_CALLS * 1e6)
             torch.cuda.synchronize()
     out = {"k7_host_us": {k: _spread(v) for k, v in us.items()},
-           "k7_host_us_rounds": us}
+           "k7_host_us_rounds": us, "serve_rounds": serves}
+    if not serves:
+        return out
     root = ROOT / "build" / "chip_smoke_opcost"
     saved = (rn.op, fa.op, rn.untraced)
 
@@ -4123,7 +4437,8 @@ def op_cost(dev) -> dict:
     return out
 
 
-def compile_phase(dev, card: str, par: dict | None) -> dict:
+def compile_phase(dev, card: str, par: dict | None,
+                  op_cost_serves: bool = False) -> dict:
     """Phase 12, the compile-side tools.
 
     C1. The dry run (``launch.dryrun.run_cell``) traces each of the four
@@ -4134,7 +4449,8 @@ def compile_phase(dev, card: str, par: dict | None) -> dict:
         part). Then gemma3-1b's ``COMPILE_SHAPES`` on (16, 16).
     C2. Serving on the sharded layout (``mesh_serving``).
     C3. The AOT program cache (``aot_check``).
-    C4. The registered operators' host cost (``op_cost``)."""
+    C4. The registered operators' host cost (``op_cost``; its serving
+        rounds with `op_cost_serves`, ``--op-cost``)."""
     import torch
 
     from repro_torch.configs import ShapeSpec
@@ -4211,7 +4527,7 @@ def compile_phase(dev, card: str, par: dict | None) -> dict:
         out["c3_s"] = time.monotonic() - t0
         say(f"compile C3: AOT cache ({card}): {json.dumps(out['aot'])}")
         t0 = time.monotonic()
-        out["op_cost"] = op_cost(dev)
+        out["op_cost"] = op_cost(dev, op_cost_serves)
         out["c4_s"] = time.monotonic() - t0
         say(f"compile C4: registered-op cost ({card}): "
             f"{json.dumps(out['op_cost'])}")
@@ -4322,6 +4638,19 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--zoo-serve-only" in sys.argv[1:]:
+        with phase("zoo_serving"):
+            zs = zoo_serving(dev, card, profile="--profile" in sys.argv[1:])
+        (out_dir / "chip_smoke_zoo_serve.json").write_text(
+            json.dumps({"card": card, "zoo_serving": zs,
+                        "phase_s": PHASE_S}, indent=1))
+        say(json.dumps({"phase_s": PHASE_S}))
+        say(card)
+        say(json.dumps({"zoo_serving": zs}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--remat-only" in sys.argv[1:]:
         model_kernel_parity(dev)
         with phase("remat"):
@@ -4338,7 +4667,8 @@ def main() -> int:
     if "--compile-only" in sys.argv[1:]:
         model_kernel_parity(dev)
         with phase("compile"):
-            comp = compile_phase(dev, card, None)
+            comp = compile_phase(dev, card, None,
+                                 "--op-cost" in sys.argv[1:])
         (out_dir / "chip_smoke_compile.json").write_text(
             json.dumps({"card": card, "compile": comp}, indent=1))
         say(json.dumps({"phase_s": PHASE_S}))
@@ -4408,6 +4738,8 @@ def main() -> int:
         fam = families(dev, card, profile=profile)
         fam["parity"] = parity_fam
         torch.cuda.empty_cache()
+    with phase("zoo_serving"):
+        zs = zoo_serving(dev, card, profile=profile)
     with phase("remat"):
         rem = remat_phase(dev, card)
         torch.cuda.empty_cache()
@@ -4428,6 +4760,8 @@ def main() -> int:
             seg: c[row["name"]] for seg, c in zoo_stats["launches"].items()}
         row["launches_families"] = {
             seg: c[row["name"]] for seg, c in fam["launches"].items()}
+        row["launches_zoo_serving"] = {
+            seg: c[row["name"]] for seg, c in zs["launches"].items()}
         row["launches_remat"] = {
             seg: c[row["name"]] for seg, c in rem["launches"].items()}
         row["launches_sharding"] = {
@@ -4442,7 +4776,7 @@ def main() -> int:
     with phase("rans_stage"):
         stats["rans_stage"] = rans_stage_ms(dev)
     with phase("compile"):
-        comp = compile_phase(dev, card, par)
+        comp = compile_phase(dev, card, par, "--op-cost" in sys.argv[1:])
     for row in rows:
         row["launches_compile"] = {
             "mesh_serving": sum(m["launches"][row["name"]]
@@ -4455,6 +4789,7 @@ def main() -> int:
     say(json.dumps({"reliability": rel}))
     say(json.dumps({"zoo": zoo_stats}))
     say(json.dumps({"families": fam}))
+    say(json.dumps({"zoo_serving": zs}))
     say(json.dumps({"remat": rem}))
     say(json.dumps({"sharding": shard}))
     say(json.dumps({"parallel": par}))
@@ -4466,6 +4801,7 @@ def main() -> int:
         json.dumps({"card": card, "main_path": stats,
                     "serving": serve_stats, "training": train_stats,
                     "reliability": rel, "zoo": zoo_stats, "families": fam,
+                    "zoo_serving": zs,
                     "remat": rem, "sharding": shard, "parallel": par, "compile": comp,
                     "kernels": rows, "phase_s": PHASE_S}, indent=1))
     say(json.dumps({"ok": True, "device": {
