@@ -38,6 +38,8 @@
                                          #   (decode tokens/s through the
                                          #   operators, three ways; also
                                          #   in a full run)
+    python3 chip_smoke.py --mixers-only  # build, parity, the mixers
+                                         #   phase alone
     python3 chip_smoke.py --engine-only  # build, parity, the main path
                                          #   alone (the checkpoint round,
                                          #   its streaming restore and the
@@ -219,7 +221,7 @@
    K4, K7 and K8 launched in every rank; then ``moe_apply_shard_map``
    over four ranks against ``moe_apply``'s routed experts on one. One
    ``{"parallel": ...}`` line.
-13. The compile phase (``compile``), last: the dry run
+13. The compile phase (``compile``): the dry run
    (``launch.dryrun.run_cell`` on fake tensors over a fake process group)
    traces each rank of the parallel phase's cell, whose predicted step
    peak must be within 25% of the rank's measured ``peak_device_bytes``
@@ -237,7 +239,19 @@
    through the registered operator against the direct wrapper, and with
    ``--op-cost`` serving's decode tokens/s both ways (30 serves). One
    ``{"compile": ...}`` line; the kernel rows carry ``launches_compile``.
-14. Prints one JSON line of per-kernel numbers (CUDA-event times at each
+14. The mixers phase (``mixers``), last: one device takes a train step and
+   serves a prefill and ``MIXER_STEPS`` decode steps of each of
+   ``MIXER_CELLS`` (mamba2-780m at 2 of 48 layers, recurrentgemma-9b at
+   3 of 38, full width), then four ranks on the card (``--mixers-rank``,
+   gloo) run them on the (1, 4) mesh, where the SSM's heads and the
+   RG-LRU's channels split over ``"model"``: the layout step's loss and
+   grad_norm within ``PAR_RTOL`` of one device's, each step's logits
+   within ``MESH_SERVE_RTOL`` of its largest and the argmax equal but at
+   a bf16 near tie, K7 and K8 launched a rank as often as on one device,
+   each rank's peak device bytes, and the split mixer's seconds beside
+   the whole-leaf mixer's (``_mixer_times``). One ``{"mixers": ...}``
+   line; the kernel rows carry ``launches_mixers``.
+15. Prints one JSON line of per-kernel numbers (CUDA-event times at each
    path's largest shapes, bounds from the bytes or operations each kernel
    needs, the plain version's and a library call's time; K7 also at every
    shape of ``K7_SHAPES`` with the L2 cold, each route forced; K8 also at the
@@ -4538,6 +4552,454 @@ def compile_phase(dev, card: str, par: dict | None,
 
 
 
+# ---------------------------------------------------------------------------
+# phase 13 — the SSM and RG-LRU mixers split over the TP axis: four ranks
+# share the card on a (1, 4) mesh
+# ---------------------------------------------------------------------------
+
+MIXER_MESH = (1, 4)
+MIXER_WORLD = 4
+# full width, cut in depth: mamba2-780m at 2 of 48 layers (SSD chunk 256),
+# recurrentgemma-9b at 3 of 38 (RG-LRU, RG-LRU, local attention) with
+# sequences of 4,096 past its 2,048 window; (batch, seq) of the layout
+# step and of the served prompts
+MIXER_CELLS = {"mamba2-780m": dict(layers=2, train=(4, 2048),
+                                   serve=(4, 2048)),
+               "recurrentgemma-9b": dict(layers=3, train=(1, 4096),
+                                         serve=(1, 4096))}
+MIXER_SEED = 13
+MIXER_STEPS = 8                # decode steps after the prefill
+MIXER_REPS = 3                 # timed calls of each mixer
+
+
+def _mixer_cfg(arch: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch),
+                               n_layers=MIXER_CELLS[arch]["layers"])
+
+
+def _mixer_tokens(cfg, shape, salt: int):
+    import torch
+    g = torch.Generator().manual_seed(MIXER_SEED + salt)
+    return torch.randint(0, cfg.vocab_size, shape, generator=g,
+                         dtype=torch.int32)
+
+
+def mixer_reference(dev, arch: str) -> dict:
+    """One device's run of a mixer cell: the train step's loss and
+    grad_norm from the seeded state, then the seeded params' prefill and
+    ``MIXER_STEPS`` greedy decode steps (logits and next tokens), with
+    the K7/K8 launches of each and its peak device bytes."""
+    import torch
+
+    from repro_torch.core.split_state import init_train_state
+    from repro_torch.models import Model
+    from repro_torch.models.model import set_constrainer
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.steps import make_train_step
+    cfg = _mixer_cfg(arch)
+    spec = MIXER_CELLS[arch]
+    model, opt = Model(cfg), make_optimizer(cfg)
+    set_constrainer(None)
+    batch = {"tokens": _mixer_tokens(cfg, spec["train"], 0)}
+    out = {"arch": arch, "cfg": cfg, "batch": batch,
+           "tokens": _mixer_tokens(cfg, spec["serve"], 1)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_train_state(model, opt, seed=MIXER_SEED, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    _, m = make_train_step(model, opt)(
+        state, {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    out["train"] = {"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    "step_s": time.monotonic() - t0,
+                    "launches": read_counts(),
+                    "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
+    del state, m
+    torch.cuda.empty_cache()
+    params = model.init(seed=MIXER_SEED, device=dev)
+    cache_len = spec["serve"][1] + MIXER_STEPS
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        logits, cache = model.prefill(params, out["tokens"].to(dev),
+                                      cache_len=cache_len)
+        serve = {"logits": [logits.cpu()],
+                 "next": [logits.argmax(-1).int().cpu()]}
+        for _ in range(MIXER_STEPS):
+            logits, cache = model.decode_step(params, cache,
+                                              serve["next"][-1].to(dev))
+            serve["logits"].append(logits.cpu())
+            serve["next"].append(logits.argmax(-1).int().cpu())
+    torch.cuda.synchronize()
+    serve.update(seconds=time.monotonic() - t0, launches=read_counts(),
+                 peak_device_bytes=torch.cuda.max_memory_allocated(dev))
+    out["serve"] = serve
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bf16_spacing(v) -> float:
+    """The gap between adjacent bf16 values at magnitude `v`."""
+    return 2.0 ** (math.floor(math.log2(float(v))) - 7)
+
+
+def _shards(local_tree, abstract):
+    """This rank's blocks (`local_tree`) as the layout step reads a sharded
+    state: each its block and the global shape of `abstract`'s leaf
+    (``launch.dryrun.Shard``, the two attributes of a ``DTensor`` that the
+    step uses)."""
+    from repro_torch.core.split_state import leaf_paths, tree_unflatten
+    from repro_torch.launch.dryrun import Shard
+    ab = dict(leaf_paths(abstract))
+    return tree_unflatten(local_tree, [Shard(t, ab[n].shape)
+                                       for n, t in leaf_paths(local_tree)])
+
+
+def _timed(fn, dev, reps: int) -> float:
+    """Seconds a call of `fn` (after one warm-up call), the card synced."""
+    import torch
+    fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.monotonic()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize(dev)
+    return (time.monotonic() - t0) / reps
+
+
+def _mixer_times(model, lay, params, dev, ref_shape) -> dict:
+    """The first mixer block of the stack, at the served prompts' shape:
+    the program's split mixer (``parallel._mixer`` on this rank's gathered
+    shares, its collectives over gloo included), every rank at once; its
+    compute alone (``split_compute_s``: the same forward on the rank's
+    shares, each rank in turn while the others wait, the output's
+    all-reduce left out and the gated norm's all-gather replaced by a
+    local copy of the rank's columns into zeroed whole rows, the same
+    bytes); the whole-leaf mixer (``ssd_forward``/``rglru_forward`` on
+    the leaves gathered over every axis) on rank 0 alone, the others
+    waiting, and on every rank at once (the replicated layout's work).
+    Also the split output's largest difference from the whole one, over
+    the whole one's largest."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import RGLRU
+    from repro_torch.core.split_state import leaf_paths
+    from repro_torch.models import layers, parallel, rglru, ssm
+    cfg = model.cfg
+    stage = model.stages[0]
+    j = next(i for i, k in enumerate(stage.kinds)
+             if k not in parallel.ATTN)
+    kind, key = stage.kinds[j], "rglru" if stage.kinds[j] == RGLRU else "ssm"
+    flat = leaf_paths(params["stage_0"])
+    names = [n for n, _ in flat if n.startswith(f"b{j}/{key}/")]
+    leaves = [t[0] for n, t in flat if n in names]
+    g = torch.Generator(device=dev).manual_seed(MIXER_SEED + 2)
+    x = torch.randn((*ref_shape, cfg.d_model), generator=g,
+                    device=dev).to(getattr(torch, cfg.dtype))
+    with torch.no_grad():
+        p, split = parallel._gather(lay, "stage_0", names, leaves)
+        sub = {n.split("/", 1)[1] for n in split}
+        whole = {n.rsplit("/", 1)[1]: parallel._param(
+            lay, f"stage_0/{n}", t, full=True, layer=True)[0]
+            for n, t in zip(names, leaves)}
+        fwd = rglru.rglru_forward if kind == RGLRU else ssm.ssd_forward
+        out = {"kind": kind, "split": sorted(sub)}
+
+        def split_fn():
+            return parallel._mixer(cfg, p[f"b{j}"], lay, sub, x, kind)
+
+        def whole_fn():
+            return fwd(whole, x, cfg)
+
+        pm, kw, _ = parallel._mixer_params(cfg, p[f"b{j}"], lay, sub, kind)
+        if "norm" in kw:
+            lo = kw["norm"].args[1]
+
+            def local_norm(g, scale):
+                rows = g.new_zeros((*g.shape[:-1], scale.shape[0]))
+                rows[..., lo:lo + g.shape[-1]] = g
+                return layers.rmsnorm(rows, scale)[..., lo:lo + g.shape[-1]]
+
+            kw = {"norm": local_norm}
+
+        def compute_fn():
+            return fwd(pm, x, cfg, **kw)
+
+        want = whole_fn().float()
+        out["rel_err"] = float((split_fn().float() - want).abs().max()
+                               / want.abs().max())
+        dist.barrier()
+        out["split_s"] = _timed(split_fn, dev, MIXER_REPS)
+        for r in range(dist.get_world_size()):
+            dist.barrier()
+            if dist.get_rank() == r:
+                out["split_compute_s"] = _timed(compute_fn, dev, MIXER_REPS)
+        dist.barrier()
+        if dist.get_rank() == 0:
+            out["whole_alone_s"] = _timed(whole_fn, dev, MIXER_REPS)
+        dist.barrier()
+        out["whole_s"] = _timed(whole_fn, dev, MIXER_REPS)
+        dist.barrier()
+    return out
+
+
+def _mixer_cell(ref: dict, mesh, dev) -> dict:
+    """One mixer cell on this rank (``mixers_rank``): its shards of the
+    seeded params; the prefill and decode steps on the layout with the
+    one-device run's tokens forced, each step's logits against the
+    reference's rows and their argmax against its next tokens; the
+    mixer's times (``_mixer_times``); the layout step from the seeded
+    state (moments of this rank's shards only); K7/K8 launches and the
+    rank's peak device bytes."""
+    import torch
+
+    from repro_torch.core.split_state import (abstract_train_state,
+                                              leaf_paths, state_shardings)
+    from repro_torch.models import Model, parallel
+    from repro_torch.optim import make_optimizer
+    from repro_torch.sharding.partition import batch_spec, param_specs
+    from repro_torch.train.steps import make_train_step
+    cfg = ref["cfg"]
+    model, opt = Model(cfg), make_optimizer(cfg)
+    out = {"arch": cfg.arch_id, "seconds": {}}
+    t_cell = time.monotonic()
+    full = model.init(seed=MIXER_SEED, device=dev)
+    params = _local_tree(full, dict(leaf_paths(param_specs(
+        model.abstract_params(), mesh))))
+    del full
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["seconds"]["init"] = time.monotonic() - t_cell
+    # serving on the layout
+    B, S = ref["tokens"].shape
+    cache_len = S + MIXER_STEPS
+    lay = parallel.serve_layout(cfg, mesh, B, cache_len)
+    lo, hi = parallel.batch_rows(lay, B)
+    sv = ref["serve"]
+    errs, same, flips = [], [], []
+
+    def check(logits, i):
+        want = sv["logits"][i][lo:hi].to(dev)
+        errs.append((logits - want).abs().max().item()
+                    / want.abs().max().item())
+        got = logits.argmax(-1).int().cpu()
+        same.append(bool(torch.equal(got, sv["next"][i][lo:hi])))
+        if not same[-1]:
+            # each row that picks another token: the reference's gap
+            # between its top two logits, the row's largest error, and the
+            # spacing of bf16 at the row's largest logit
+            top2 = want.topk(2, dim=-1).values
+            for b in (got != sv["next"][i][lo:hi]).nonzero()[:, 0].tolist():
+                flips.append({"step": i, "row": lo + b, "ref_gap": float(
+                    top2[b, 0] - top2[b, 1]), "row_err": float(
+                    (logits[b] - want[b]).abs().max()),
+                    "bf16_spacing": _bf16_spacing(want[b].abs().max())})
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        logits, cache = parallel.prefill(model, params,
+                                         ref["tokens"][lo:hi].to(dev), lay,
+                                         cache_len=cache_len)
+        torch.cuda.synchronize()
+        prefill_s = time.monotonic() - t0
+        check(logits, 0)
+        t1 = time.monotonic()
+        for i in range(MIXER_STEPS):
+            logits, cache = parallel.decode_step(
+                model, params, cache, sv["next"][i][lo:hi].to(dev), lay)
+            check(logits, i + 1)
+    torch.cuda.synchronize()
+    out["serve"] = {"rows": [lo, hi], "prefill_s": prefill_s,
+                    "decode_s": time.monotonic() - t1, "rel_err": errs,
+                    "argmax_equal": same, "flips": flips,
+                    "launches": read_counts(),
+                    "peak_device_bytes": torch.cuda.max_memory_allocated(
+                        dev)}
+    del cache
+    out["seconds"]["serve"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    out["mixer"] = _mixer_times(model, lay, params, dev, (B, S))
+    out["seconds"]["mixer"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    # the layout step
+    abstract = abstract_train_state(model, opt)
+    sh = state_shardings(abstract, mesh, opt)
+    local = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev),
+             "rng": torch.zeros(2, dtype=torch.int32, device=dev)
+             .view(torch.uint32)}
+    state = _shards(local, abstract)
+    batch = {k: v.to(dev) for k, v in ref["batch"].items()}
+    bsh = batch_spec(batch, mesh, cfg)
+    lb = _local_tree(batch, bsh)
+    step = make_train_step(model, opt, shardings=sh,
+                           batch_axes=bsh["tokens"].dim_axes(2)[0])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["seconds"]["state"] = time.monotonic() - t0
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    _, m = step(state, lb)
+    torch.cuda.synchronize()
+    out["train"] = {"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    "step_s": time.monotonic() - t0,
+                    "launches": read_counts(),
+                    "peak_device_bytes": torch.cuda.max_memory_allocated(
+                        dev)}
+    out["local_param_bytes"] = sum(t.nbytes for t in _leaves(params))
+    out["local_state_bytes"] = sum(t.nbytes for t in _leaves(local))
+    out["peak_device_bytes"] = max(out["serve"]["peak_device_bytes"],
+                                   out["train"]["peak_device_bytes"])
+    del state, local, params
+    torch.cuda.empty_cache()
+    out["seconds"]["total"] = time.monotonic() - t_cell
+    return out
+
+
+def mixers_rank(root: Path) -> int:
+    """One of the four ranks of the mixers phase (``--mixers-rank``,
+    spawned by ``mixers``), a process on the one card in a gloo group
+    (NCCL refuses two ranks on one card): each cell of the reference file
+    the parent wrote (``_mixer_cell``) on the (1, 4) mesh. Prints one
+    RESULT line."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    refs = torch.load(root / "mixers_ref.pt", weights_only=False)
+    dev = torch.device(refs["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(root / "rendezvous_mix"), world),
+        rank=rank, world_size=world)
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(MIXER_MESH, ("data", "model"), device=dev)
+    out = {"rank": rank, "startup_s": time.monotonic() - T_START}
+    out["cells"] = [_mixer_cell(ref, mesh, dev) for ref in refs["cells"]]
+    print("RESULT::" + json.dumps(out), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mixers(dev, card: str) -> dict:
+    """Phase 13, the SSM and RG-LRU mixers split over the TP axis.
+
+    One device runs each of ``MIXER_CELLS`` (``mixer_reference``); then
+    four ranks (``--mixers-rank``; the parent frees its card memory
+    first) run them on the (1, 4) mesh. Each rank's layout step must give
+    one device's loss and grad_norm within ``PAR_RTOL``; its prefill and
+    decode logits must be within ``MESH_SERVE_RTOL`` of the reference's
+    largest with the argmax equal; its mixer must run split (its
+    ``A_log`` or ``wx`` split over ``"model"``) and agree with the
+    whole-leaf mixer within ``MESH_SERVE_RTOL``; and each rank must launch
+    K7 (and K8 where the cell has attention) as often as one device does,
+    in the step and in serving."""
+    import torch
+    root = ROOT / "build" / "chip_smoke_mixers"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = {"mesh": list(MIXER_MESH), "world": MIXER_WORLD, "card": card,
+           "cells": {}}
+    try:
+        t0 = time.monotonic()
+        refs = [mixer_reference(dev, arch) for arch in MIXER_CELLS]
+        out["reference_s"] = time.monotonic() - t0
+        torch.save({"device": str(dev), "cells": refs},
+                   root / "mixers_ref.pt")
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        ranks = _spawn_ranks("--mixers-rank", root, MIXER_WORLD, 600)
+        out["ranks_wall_s"] = time.monotonic() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    (ROOT / "chiprun_out" / "chip_smoke_mixers_ranks.json").write_text(
+        json.dumps({"card": card, **out, "ranks": ranks, "reference": [
+            {k: r[k] for k in ("arch", "train")} for r in refs]}, indent=1))
+    launches = {"train": [], "serve": []}
+    for i, ref in enumerate(refs):
+        cfg = ref["cfg"]
+        kernels = ("rmsnorm", "flash_attention") if any(
+            k.startswith("attn") for k in cfg.layer_kinds) else ("rmsnorm",)
+        cell = {"n_layers": cfg.n_layers, "train_shape": list(
+            ref["batch"]["tokens"].shape), "serve_shape": list(
+            ref["tokens"].shape), "decode_steps": MIXER_STEPS,
+            "reference": {
+                "train": ref["train"],
+                "serve": {k: ref["serve"][k] for k in (
+                    "seconds", "launches", "peak_device_bytes")}},
+            "ranks": [r["cells"][i] for r in ranks]}
+        for rk, r in enumerate(cell["ranks"]):
+            tag = f"mixers {ref['arch']} rank {rk}"
+            for k in ("loss", "grad_norm"):
+                want = ref["train"][k]
+                r["train"][f"{k}_rel_diff"] = abs(r["train"][k] - want) \
+                    / abs(want)
+                if not r["train"][f"{k}_rel_diff"] <= PAR_RTOL:
+                    fail(f"{tag}: layout step {k} {r['train'][k]!r} vs one "
+                         f"device's {want!r}")
+            if not max(r["serve"]["rel_err"]) <= MESH_SERVE_RTOL:
+                fail(f"{tag}: logits {r['serve']['rel_err']} of the largest "
+                     f"from one device's (bound {MESH_SERVE_RTOL})")
+            # the argmax must be one device's but at a near tie: a row
+            # whose reference top two logits lie within one bf16 spacing
+            # of its largest (the activations' precision cannot order them)
+            for f in r["serve"]["flips"]:
+                if not f["ref_gap"] <= f["bf16_spacing"]:
+                    fail(f"{tag}: argmax differs from one device's past a "
+                         f"near tie: {json.dumps(f)}")
+            mx = r["mixer"]
+            if not any(n in mx["split"] for n in ("ssm/A_log", "rglru/wx")):
+                fail(f"{tag}: the mixer ran replicated ({mx['split']})")
+            if not mx["rel_err"] <= MESH_SERVE_RTOL:
+                fail(f"{tag}: split mixer {mx['rel_err']} of the largest "
+                     "from the whole-leaf mixer's")
+            for seg in ("train", "serve"):
+                for k in kernels:
+                    got, want = r[seg]["launches"][k], \
+                        ref[seg]["launches"][k]
+                    if not (got > 0 and got == want):
+                        fail(f"{tag}: {k} launched {got} times in the "
+                             f"{seg} run, one device {want}")
+            launches["train"].append(r["train"]["launches"])
+            launches["serve"].append(r["serve"]["launches"])
+        out["cells"][ref["arch"]] = cell
+    out["launches"] = {seg: _sum_counts(*c) for seg, c in launches.items()}
+    say(f"mixers ({card}): {MIXER_WORLD} ranks on one card, mesh "
+        f"{MIXER_MESH}: " + "; ".join(
+            f"{a}: mixer split s "
+            f"{[round(r['mixer']['split_s'], 5) for r in c['ranks']]}, "
+            f"its compute alone s "
+            f"{[round(r['mixer']['split_compute_s'], 5) for r in c['ranks']]}"
+            ", "
+            f"whole alone s {c['ranks'][0]['mixer']['whole_alone_s']:.5f}, "
+            f"whole every rank s "
+            f"{[round(r['mixer']['whole_s'], 5) for r in c['ranks']]}, "
+            f"step s {[round(r['train']['step_s'], 3) for r in c['ranks']]}"
+            f", peak bytes "
+            f"{[r['peak_device_bytes'] for r in c['ranks']]}, loss rel "
+            f"{[r['train']['loss_rel_diff'] for r in c['ranks']]}, "
+            f"logits rel {max(max(r['serve']['rel_err']) for r in c['ranks'])}"
+            f", argmax flips at near ties "
+            f"{[f for r in c['ranks'] for f in r['serve']['flips']]}"
+            for a, c in out["cells"].items()))
+    return out
+
+
 def _leaves(tree):
     from repro_torch.core.split_state import leaf_paths
     return [t for _, t in leaf_paths(tree)]
@@ -4550,6 +5012,8 @@ def main() -> int:
         return parallel_rank(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--serve-rank"]:
         return serve_rank(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--mixers-rank"]:
+        return mixers_rank(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--aot-load"]:
         return aot_load(Path(sys.argv[2]))
     import torch
@@ -4678,6 +5142,19 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--mixers-only" in sys.argv[1:]:
+        with phase("mixers"):
+            mix = mixers(dev, card)
+        (out_dir / "chip_smoke_mixers.json").write_text(
+            json.dumps({"card": card, "mixers": mix, "phase_s": PHASE_S},
+                       indent=1))
+        say(json.dumps({"phase_s": PHASE_S}))
+        say(card)
+        say(json.dumps({"mixers": mix}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--sharding-only" in sys.argv[1:]:
         sh = sharding(dev, card)
         say(card)
@@ -4783,6 +5260,11 @@ def main() -> int:
                                 for r in comp["mesh_serving"]["ranks"]
                                 for m in r["meshes"]),
             "aot_load": comp["aot"]["load_launches"][row["name"]]}
+    with phase("mixers"):
+        mix = mixers(dev, card)
+    for row in rows:
+        row["launches_mixers"] = {
+            seg: c[row["name"]] for seg, c in mix["launches"].items()}
     PHASE_S["total"] = time.monotonic() - T_START
     say(json.dumps({"phase_s": PHASE_S}))
     say(card)
@@ -4794,6 +5276,7 @@ def main() -> int:
     say(json.dumps({"sharding": shard}))
     say(json.dumps({"parallel": par}))
     say(json.dumps({"compile": comp}))
+    say(json.dumps({"mixers": mix}))
     say(json.dumps({"main_path": stats, "serving": serve_stats,
                     "training": train_stats}))
     say(json.dumps({"kernels": rows}))
@@ -4803,7 +5286,8 @@ def main() -> int:
                     "reliability": rel, "zoo": zoo_stats, "families": fam,
                     "zoo_serving": zs,
                     "remat": rem, "sharding": shard, "parallel": par, "compile": comp,
-                    "kernels": rows, "phase_s": PHASE_S}, indent=1))
+                    "mixers": mix, "kernels": rows, "phase_s": PHASE_S},
+                   indent=1))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,10 +9,8 @@ Parameters are each rank's local shards (``DTensor.to_local()``). A layer
 gathers its own leaves just before it uses them (``_param``): every dim
 sharded over ``"data"`` (FSDP) is all-gathered, a dim sharded over the TP
 axis (``"model"``) stays local, and the leaf passes ``copy_to`` over every
-axis that replicates it. The SSM and RG-LRU mixers gather their leaves over
-both axes and compute replicated over ``"model"`` (mamba2's packed
-``in_proj`` does not split column-wise); so does everything under
-``dp_over_model``, which makes ``"model"`` a batch axis. Each layer (one
+axis that replicates it. Everything computes replicated over ``"model"``
+under ``dp_over_model``, which makes ``"model"`` a batch axis. Each layer (one
 repeat of its stage, with its gathers) runs under ``cfg.remat_policy``'s
 wrapper (``model.remat``): under ``nothing`` (the default) autograd keeps
 the layer's input, not its gathered weights, and the backward gathers them
@@ -35,6 +33,19 @@ The layout at each site (``tp`` the size of the TP axis):
   for this rank's S/tp query rows against the whole key sequence (K8 with
   ``q_offset``); local attention, or no ``seq_shard_attn``: replicated;
 * dense MLP: ``wg``/``wu``/``wi`` column-parallel, ``wd`` row-parallel;
+* RG-LRU: every width dim is a channel, so the rank's shards are its W/tp
+  channels: ``wx``/``wg`` column-parallel, the depthwise conv, ``lam`` and
+  the gates on those channels, the scan over them, ``wo`` row-parallel;
+* SSM (heads divisible by tp): this rank's nh/tp heads. ``A_log``, ``D``,
+  ``dt_bias`` and ``out_proj``'s rows are its shards; the packed
+  ``in_proj`` (``[z | x | B | C | dt]``) and conv (``[x | B | C]``) are
+  gathered over ``"model"`` and cut to the heads' columns and the B/C
+  groups they read (``ssm.take_heads``); the gated norm normalises whole
+  d_inner rows, so ``y · silu(z)`` is all-gathered over ``"model"``, K7
+  runs on the whole rows with ``out_norm`` gathered, and the rank keeps
+  its columns for the row-parallel ``out_proj``. Where the heads do not
+  divide tp or a rank's heads would straddle a B/C group, the SSM's
+  leaves are gathered over every axis and it runs replicated;
 * MoE: experts split over ``"model"``, every rank routing the same groups
   (``_moe``), or the explicit all-to-all schedule of ``moe_shard_map`` when
   an exec mesh is set;
@@ -61,13 +72,18 @@ its slots of the positions (or, where the batch does not divide the DP
 axes, its slots over every axis). A decode step's attention over split
 positions takes every head's query and combines the ranks' partial
 softmax (the max and the sum reduced over the axes that split the
-positions, then the weighted values); a recurrent or conv state split
-over ``"model"`` is gathered for the replicated mixer and written back
-as the rank's block. Logits are gathered over the vocabulary where the
-head is split, so next tokens come from the whole distribution.
+positions, then the weighted values). A split mixer reads and writes
+its recurrent state's heads or channels in the cache's block of them
+with no gather; the cache keeps the conv history's channels whole on
+every rank, so the rank computes its channels' new history and
+all-gathers it over ``"model"``. A replicated mixer gathers a state split
+over ``"model"`` and writes back the rank's block. Logits are gathered
+over the vocabulary where the head is split, so next tokens come from
+the whole distribution.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 from ..configs.base import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, SSM
@@ -76,10 +92,12 @@ from ..sharding.partition import entry_axes
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import (_softcap, apply_norm, attention_decode, attention_full,
-                     attention_local, conv_pos_embed, mlp_apply)
+                     attention_local, conv_pos_embed, mlp_apply, rmsnorm)
 
 ATTN = (ATTN_GLOBAL, ATTN_LOCAL)
-FULL = ("ssm", "rglru")          # mixers gathered over every axis
+# an SSM's leaves that hold a split rank's own heads (the others are
+# gathered over every axis)
+HEADS = ("A_log", "D", "dt_bias", "out_proj")
 
 
 # ---------------------------------------------------------------------------
@@ -104,14 +122,27 @@ def _param(lay, name, t, *, full=False, layer=False):
     return C.gather_param(t, gathers, replicated), split
 
 
+def _ssm_split(lay, a_log: str) -> bool:
+    """Whether an SSM block runs on this rank's heads: its heads' leaves
+    split over the TP axis (the spec of ``A_log``, leaf `a_log`), and each
+    rank's heads read whole B/C groups or lie in one."""
+    if lay.tp_axis is None or not any(
+            lay.tp_axis in entry_axes(e) for e in lay.param_spec(a_log)):
+        return False
+    _, nh, _ = ssm_mod.dims(lay.cfg)
+    n, rep = nh // lay.tp, nh // lay.cfg.ssm.n_groups
+    return n % rep == 0 or rep % n == 0
+
+
 def _gather(lay, prefix, names, leaves):
     """The layer's nested parameter dict from its ``/``-joined leaf
     `names` under `prefix` → (dict, set of the names split over TP)."""
     tree, split = {}, set()
     for name, t in zip(names, leaves):
         parts = name.split("/")
-        g, s = _param(lay, f"{prefix}/{name}", t, layer=True,
-                      full=any(p in FULL for p in parts))
+        full = "ssm" in parts and not (parts[-1] in HEADS and _ssm_split(
+            lay, f"{prefix}/{'/'.join(parts[:-1])}/A_log"))
+        g, s = _param(lay, f"{prefix}/{name}", t, layer=True, full=full)
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
@@ -247,16 +278,80 @@ def _mlp(lay, cfg, p, split, prefix, h):
     return y + p["bd"] if "bd" in p else y
 
 
-def _mixer(cfg, p, lay, h, kind, state=None):
-    """SSM / RG-LRU: whole leaves, all S rows, replicated over TP. With
-    `state` (a list) a prefill also appends the final state."""
-    key, fwd = ("rglru", rglru_mod.rglru_forward) if kind == RGLRU \
-        else ("ssm", ssm_mod.ssd_forward)
+def _mixer(cfg, p, lay, split, h, kind, state=None):
+    """SSM / RG-LRU on residual rows `h`, over all S rows: on this rank's
+    channels (RG-LRU, W divisible by tp) or heads (SSM, ``_ssm_split``),
+    ``wo``/``out_proj``'s partial sum reduced over TP; else on whole
+    leaves, replicated over TP. With `state` (a list) a prefill also
+    appends ``(final state, whether it holds this rank's heads or
+    channels)``."""
+    fwd = rglru_mod.rglru_forward if kind == RGLRU else ssm_mod.ssd_forward
+    pm, kw, own = _mixer_params(cfg, p, lay, split, kind)
     if state is None:
-        return _rows(lay, fwd(p[key], _full(lay, h), cfg))
-    o, st = fwd(p[key], _full(lay, h), cfg, return_state=True)
-    state.append(st)
-    return _rows(lay, o)
+        o = fwd(pm, _full(lay, h), cfg, **kw)
+    else:
+        o, st = fwd(pm, _full(lay, h), cfg, return_state=True, **kw)
+        state.append((st, own))
+    return _reduce(lay, o) if own else _rows(lay, o)
+
+
+def _mixer_params(cfg, p, lay, split, kind):
+    """(the mixer's leaves as its forward takes them, its keyword
+    arguments, whether it runs on this rank's heads or channels)."""
+    if kind == RGLRU:
+        return p["rglru"], {}, "rglru/wx" in split
+    if "ssm/A_log" not in split:
+        return p["ssm"], {}, False
+    n = p["ssm"]["A_log"].shape[0]
+    h0 = lay.coord(lay.tp_axis) * n
+    norm = functools.partial(_gated_norm, lay, h0 * cfg.ssm.head_dim)
+    return ssm_mod.take_heads(p["ssm"], cfg, h0, n), {"norm": norm}, True
+
+
+def _gated_norm(lay, lo: int, g, scale):
+    """mamba2's gated norm on a rank's heads: `g` (its d_inner columns
+    from `lo`) all-gathered over TP into whole rows, K7 on them with
+    `scale` (``out_norm``, whole), the rank's columns kept."""
+    whole = C.all_gather(g, _tp(lay), g.dim() - 1)
+    return rmsnorm(whole, scale)[..., lo:lo + g.shape[-1]]
+
+
+def _conv_whole(lay, cfg, kind, t):
+    """A split mixer's conv history `t` (its channels on the last dim) →
+    every channel, as one device holds it: the ranks' x channels
+    all-gathered, and the B/C groups from a rank whose heads read them."""
+    import torch
+    last = t.dim() - 1
+    if kind == RGLRU:
+        return C.all_gather(t, _tp(lay), last)
+    s = cfg.ssm
+    _, nh, _ = ssm_mod.dims(cfg)
+    n = nh // lay.tp
+    d = n * s.head_dim
+    x = C.all_gather(t[..., :d], _tp(lay), last)
+    g0, g1 = ssm_mod.head_groups(cfg, lay.coord(lay.tp_axis) * n, n)
+    if g1 - g0 == s.n_groups:
+        return torch.cat([x, t[..., d:]], dim=last)
+    ranks = C.all_gather(t[None, ..., d:], _tp(lay), 0)
+    gl, N = g1 - g0, s.d_state
+    b, c = [], []
+    for grp in range(s.n_groups):
+        r = grp * (nh // s.n_groups) // n       # the first rank reading it
+        i = grp - ssm_mod.head_groups(cfg, r * n, n)[0]
+        b.append(ranks[r][..., i * N:(i + 1) * N])
+        c.append(ranks[r][..., (gl + i) * N:(gl + i + 1) * N])
+    return torch.cat([x] + b + c, dim=last)
+
+
+def _conv_own(lay, cfg, kind, t):
+    """Every channel of a conv history → this rank's (``_conv_whole``'s
+    inverse)."""
+    if kind == RGLRU:
+        return _take(lay, t, t.dim() - 1, (lay.tp_axis,))
+    _, nh, _ = ssm_mod.dims(cfg)
+    n = nh // lay.tp
+    return ssm_mod.cut(t, ssm_mod.conv_spans(
+        cfg, lay.coord(lay.tp_axis) * n, n))
 
 
 def _moe(model, lay, p, split, h, exec_mesh):
@@ -329,7 +424,7 @@ def _block(model, lay, p, split, x, kind, moe, ropes, exec_mesh, *,
     elif kind in ATTN:
         o = _attention(model, lay, p, split, h, kind, ropes, cache)
     else:
-        o = _mixer(cfg, p, lay, h, kind, cache)
+        o = _mixer(cfg, p, lay, split, h, kind, cache)
     if cfg.post_norm:
         o = apply_norm(p["norm_post"], o, cfg)
     x = x + o
@@ -610,8 +705,11 @@ def _cache_entry(model, lay, kind, got, spec: dict, cache_len: int):
     """A block's prefill output (``_block``'s `cache`) → its cache leaves,
     this rank's blocks under `spec` (leaf → spec of the stacked leaf)."""
     if kind not in ATTN:
+        st, own = got
+        if own:
+            return _state_out(model.cfg, lay, kind, st, spec)
         return {n: _take(lay, t, 1, entry_axes(spec[n][2]))
-                for n, t in got.items()}
+                for n, t in st.items()}
     k, v, k_split = got
     out = {}
     for n, t in model._build_attn_cache(kind, k, v, cache_len).items():
@@ -644,7 +742,7 @@ def prefill(model, params, tokens, lay, *, cache_len: int = 0,
         got: list = []
         x, _ = _block(model, lay, p, split, x, kind, moe, ropes, exec_mesh,
                       cache=got)
-        names = ("k", "v") if kind in ATTN else tuple(got[0])
+        names = ("k", "v") if kind in ATTN else tuple(got[0][0])
         spec = {n: lay.cache_spec[f"stage_{si}/b{j}/{n}"] for n in names}
         entry = _cache_entry(model, lay, kind, got[0], spec, cache_len)
         layers = caches.setdefault(f"stage_{si}", {}).setdefault(f"b{j}",
@@ -715,16 +813,46 @@ def _attn_decode(model, lay, cache, spec, pos, ropes, p, split, h, kind):
     return out
 
 
+def _state_out(cfg, lay, kind, st, spec):
+    """A split mixer's state `st` → this rank's cache blocks under `spec`:
+    the recurrent state as it is (the cache splits its heads or channels
+    over ``"model"`` where the mixer does), the conv history made whole
+    (``_conv_whole``) and cut to the cache's block."""
+    return {n: _take(lay, _conv_whole(lay, cfg, kind, t), 1,
+                     entry_axes(spec[n][2])) if n == "conv" else t
+            for n, t in st.items()}
+
+
+def _state_in(cfg, lay, kind, cache, spec):
+    """This rank's cache blocks → a split mixer's state: its heads or
+    channels (``_state_out``'s inverse)."""
+    return {n: _conv_own(lay, cfg, kind, _gather_dim(
+        lay, t, 1, entry_axes(spec[n][2]))) if n == "conv" else t
+        for n, t in cache.items()}
+
+
 def _mixer_decode(model, lay, cache, spec, pos, ropes, p, split, h, kind):
-    """One token through an SSM or RG-LRU block, replicated over TP: the
-    state gathered where the cache splits it, this rank's blocks of the
-    new state written back (`pos`, `ropes`: unused, as ``_attn_decode``'s
-    arguments)."""
-    key, step = ("rglru", rglru_mod.rglru_decode_step) if kind == RGLRU \
-        else ("ssm", ssm_mod.ssd_decode_step)
+    """One token through an SSM or RG-LRU block (`pos`, `ropes`: unused, as
+    ``_attn_decode``'s arguments). Split over TP (``_mixer``'s layout):
+    the step reads and writes the rank's heads or channels of the
+    recurrent state in the cache's block, computes its channels of the
+    conv history and writes the history whole (``_state_in``,
+    ``_state_out``), and the output's partial sum is all-reduced.
+    Replicated: the state gathered where the cache splits it, this rank's
+    blocks of the new state written back."""
+    cfg = model.cfg
+    step = rglru_mod.rglru_decode_step if kind == RGLRU \
+        else ssm_mod.ssd_decode_step
+    pm, kw, own = _mixer_params(cfg, p, lay, split, kind)
+    if own:
+        o, new = step(pm, h, cfg, _state_in(cfg, lay, kind, cache, spec),
+                      **kw)
+        for n, t in _state_out(cfg, lay, kind, new, spec).items():
+            cache[n].copy_(t)
+        return _reduce(lay, o)
     axes = {n: entry_axes(spec[n][2]) for n in cache}
     state = {n: _gather_dim(lay, t, 1, axes[n]) for n, t in cache.items()}
-    o, new = step(p[key], h, model.cfg, state)
+    o, new = step(pm, h, cfg, state)
     for n, t in new.items():
         cache[n].copy_(_take(lay, t, 1, axes[n]))
     return o

@@ -9,6 +9,10 @@ counterpart, so ``_scan`` runs ⌈log2 S⌉ doubling passes over (B, S, W)
 f32 with the reference's ``combine`` (12 passes at S 4,096). Its
 association order differs from the reference's, so the values agree
 within rounding, not bit for bit. Decode is the O(1) update.
+
+Every width dim is a channel, and every size here comes from the leaves:
+on a mesh (``models.parallel``) a TP rank calls the same functions on its
+shards, its W/tp channels, and ``wo``'s rows give it a partial sum.
 """
 from __future__ import annotations
 

@@ -24,6 +24,12 @@ forward runs each layer under ``cfg.remat_policy`` (``models.model``;
 mamba2-780m's is ``nothing``, as the reference's), so only one layer's
 blocks are held at a time, in its recompute: the 48-layer step fits the
 card (``chip_smoke.py``'s remat phase).
+
+On a mesh (``models.parallel``) a TP rank runs the same functions on its
+own heads: ``take_heads`` cuts the packed ``in_proj`` and conv leaves to
+the rank's z/x/dt columns and the B/C groups its heads read, every size
+here comes from the leaves (``_sizes``), and ``norm`` takes the place of
+the gated norm, which normalises whole d_inner rows.
 """
 from __future__ import annotations
 
@@ -38,10 +44,60 @@ def dims(cfg):
     return d_inner, nh, conv_dim
 
 
-def _split_proj(cfg, zxbcdt):
+def _sizes(params, cfg):
+    """(d_inner, nh, n_groups) of the heads `params` hold: all of them, or
+    a rank's (``take_heads``)."""
     s = cfg.ssm
-    d_inner, nh, _ = dims(cfg)
+    nh = params["A_log"].shape[-1]
+    d_inner = nh * s.head_dim
+    return d_inner, nh, (params["conv_w"].shape[-1] - d_inner) // (
+        2 * s.d_state)
+
+
+def head_groups(cfg, h0: int, n: int) -> tuple:
+    """The B/C groups [g0, g1) that heads [h0, h0 + n) read."""
+    _, nh, _ = dims(cfg)
+    rep = nh // cfg.ssm.n_groups
+    return h0 // rep, (h0 + n - 1) // rep + 1
+
+
+def take_heads(params, cfg, h0: int, n: int):
+    """`params` (whole ``in_proj``, ``conv_w``, ``conv_b``) with those
+    packed leaves cut to heads [h0, h0 + n): ``in_proj``'s columns
+    ``[z | x | B | C | dt]`` and the conv's channels ``[x | B | C]`` of
+    the heads and of the B/C groups they read (``head_groups``). The
+    other leaves are left as given (a rank passes its own shards)."""
+    d_inner, _, _ = dims(cfg)
+    gn = cfg.ssm.n_groups * cfg.ssm.d_state
+    conv = conv_spans(cfg, h0, n)
+    out = dict(params)
+    out["in_proj"] = cut(params["in_proj"], [conv[0]] + [
+        (a + d_inner, b + d_inner) for a, b in conv] + [
+        (2 * d_inner + 2 * gn + h0, 2 * d_inner + 2 * gn + h0 + n)])
+    out["conv_w"] = cut(params["conv_w"], conv)
+    out["conv_b"] = cut(params["conv_b"], conv)
+    return out
+
+
+def conv_spans(cfg, h0: int, n: int) -> list:
+    """The conv channels ``[x | B | C]`` of heads [h0, h0 + n) and of the
+    B/C groups they read, as (start, stop) spans of the whole channels."""
+    s = cfg.ssm
+    d_inner, _, _ = dims(cfg)
     gn = s.n_groups * s.d_state
+    g0, g1 = head_groups(cfg, h0, n)
+    return [(h0 * s.head_dim, (h0 + n) * s.head_dim)] + [
+        (d_inner + o + g0 * s.d_state, d_inner + o + g1 * s.d_state)
+        for o in (0, gn)]
+
+
+def cut(t, spans):
+    """`t`'s last dim cut to `spans` ((start, stop) pairs), concatenated."""
+    import torch
+    return torch.cat([t[..., a:b] for a, b in spans], dim=-1)
+
+
+def _split_proj(zxbcdt, d_inner: int, gn: int):
     z = zxbcdt[..., :d_inner]
     xBC = zxbcdt[..., d_inner: 2 * d_inner + 2 * gn]
     dt = zxbcdt[..., 2 * d_inner + 2 * gn:]
@@ -82,23 +138,27 @@ def _chunk(h, xk, Bk, Ck, dtk, A, rep: int):
     return h, y
 
 
-def ssd_forward(params, x, cfg, *, state=None, return_state=False):
+def ssd_forward(params, x, cfg, *, state=None, return_state=False,
+                norm=None):
     """x: (B, S, D) → y (B, S, D) [, new_state].
 
     state = {"conv": (B, w−1, conv_dim), "h": (B, nh, hd, N) f32} or None.
-    S must be a multiple of min(chunk_size, S), as in the reference."""
+    S must be a multiple of min(chunk_size, S), as in the reference.
+    `norm(g, out_norm)` (default ``layers.rmsnorm``) normalises the gated
+    ``g = y · silu(z)``. On a rank's heads (``take_heads``, its rows of
+    ``out_proj``) the output is the rank's partial sum."""
     import torch
     import torch.nn.functional as F
     s = cfg.ssm
     B, S, D = x.shape
-    d_inner, nh, conv_dim = dims(cfg)
-    G, N, hd, L = s.n_groups, s.d_state, s.head_dim, s.chunk_size
+    d_inner, nh, G = _sizes(params, cfg)
+    N, hd, L = s.d_state, s.head_dim, s.chunk_size
     L = min(L, S)
     assert S % L == 0, (S, L)
     nc = S // L
 
     zxbcdt = x @ params["in_proj"]
-    z, xBC, dtr = _split_proj(cfg, zxbcdt)
+    z, xBC, dtr = _split_proj(zxbcdt, d_inner, G * N)
     conv_state = None if state is None else state["conv"]
     xBC, new_conv = causal_conv1d(xBC, params["conv_w"], params["conv_b"],
                                   state=conv_state)
@@ -120,25 +180,26 @@ def ssd_forward(params, x, cfg, *, state=None, return_state=False):
     y = torch.cat(ys, dim=1)                                 # (B, S, nh, hd)
     y = y + params["D"][:, None] * xs.float()
     y = y.reshape(B, S, d_inner).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), params["out_norm"])
+    y = (norm or rmsnorm)(y * F.silu(z), params["out_norm"])
     out = y @ params["out_proj"]
     if return_state:
         return out, {"conv": new_conv, "h": h}
     return out
 
 
-def ssd_decode_step(params, x, cfg, state):
+def ssd_decode_step(params, x, cfg, state, *, norm=None):
     """x: (B, 1, D); state {"conv", "h"} → (y (B, 1, D), new_state): new
-    tensors, the caller's state is not written."""
+    tensors, the caller's state is not written. `norm` as
+    ``ssd_forward``'s."""
     import torch
     import torch.nn.functional as F
     s = cfg.ssm
     B = x.shape[0]
-    d_inner, nh, conv_dim = dims(cfg)
-    G, N, hd = s.n_groups, s.d_state, s.head_dim
+    d_inner, nh, G = _sizes(params, cfg)
+    N, hd = s.d_state, s.head_dim
 
     zxbcdt = x @ params["in_proj"]
-    z, xBC, dtr = _split_proj(cfg, zxbcdt)
+    z, xBC, dtr = _split_proj(zxbcdt, d_inner, G * N)
     xBC, new_conv = causal_conv1d(xBC, params["conv_w"], params["conv_b"],
                                   state=state["conv"])
     xBC = F.silu(xBC)
@@ -157,7 +218,7 @@ def ssd_decode_step(params, x, cfg, state):
     y = torch.einsum("bhn,bhpn->bhp", Ch, h)
     y = y + params["D"][:, None] * xs.float()
     y = y.reshape(B, 1, d_inner).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), params["out_norm"])
+    y = (norm or rmsnorm)(y * F.silu(z), params["out_norm"])
     out = y @ params["out_proj"]
     return out, {"conv": new_conv, "h": h}
 

@@ -37,7 +37,8 @@ CASES4 = [(a, (2, 2), {}) for a in ALL] + \
                                                     "mamba2-780m",
                                                     "hubert-xlarge"]] + \
     [(a, (1, 4), {}) for a in ["gemma3-1b", "gemma2-9b",
-                               "llama4-scout-17b-a16e", "mamba2-780m"]] + \
+                               "llama4-scout-17b-a16e", "mamba2-780m",
+                               "recurrentgemma-9b"]] + \
     [("gemma3-1b", (2, 2), {"remat_policy": p})
      for p in ("full", "dots", "offload_resid")]
 CASES8 = [(a, (1, 8), {"seq_shard_attn": True})

@@ -28,7 +28,8 @@ import numpy as np
 import pytest
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
-ARCHS = ["gemma3-1b", "llama4-scout-17b-a16e", "mamba2-780m"]
+ARCHS = ["gemma3-1b", "llama4-scout-17b-a16e", "mamba2-780m",
+         "recurrentgemma-9b"]
 ENCODER = "hubert-xlarge"
 MESHES = [(2, 2), (1, 4)]
 B, S, CACHE_LEN, STEPS = 4, 20, 24, 3
