@@ -40,10 +40,18 @@
                                          #   in a full run)
     python3 chip_smoke.py --mixers-only  # build, parity, the mixers
                                          #   phase alone
+    python3 chip_smoke.py --examples-only  # build, K7/K8 parity, the
+                                         #   examples phase alone
     python3 chip_smoke.py --engine-only  # build, parity, the main path
                                          #   alone (the checkpoint round,
                                          #   its streaming restore and the
                                          #   engine's fault paths)
+    python3 chip_smoke.py --stacks ...   # with any of the above: sample
+                                         #   every thread's Python stack
+                                         #   each 10 ms, counted per phase
+                                         #   (and per run of preempt_resume)
+                                         #   into chiprun_out/
+                                         #   chip_smoke_stacks.txt
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
@@ -64,8 +72,8 @@
    reduced gemma3-1b model on the card (kernels) against the same model
    on the CPU (plain versions) in f32.
 3. The checkpoint path: the gemma3-1b training state at full width,
-   ``MAIN_LAYERS`` (6) of 26 layers (bf16 params, f32 AdamW moments;
-   ~4.6 GB, ~10.0 GB at full depth) on the card, saved by
+   ``MAIN_LAYERS`` (2) of 26 layers (bf16 params, f32 AdamW moments;
+   ~3.6 GB, ~10.0 GB at full depth) on the card, saved by
    ``CheckpointManager`` as an incremental CDC round (params through the
    fused K2+K1+K3 dispatch, moments through the segmented K1 scan), ~10% of
    the leaves changed, saved again asynchronously, restored onto the card
@@ -98,9 +106,10 @@
    a new Trainer restores step 3 — K4 decoding every params leaf on the
    card — and runs step 4 (an overlapped save), whose ``params_digest``
    must equal run A's.
-   The trained state is then saved with ``params_codec="int8"`` through
-   the K5 route and through the host oracle (``device_precondition=
-   False``): manifests and CAS objects must be identical; the params
+   The trained params (the leaves the int8 codec encodes) are then saved
+   with ``params_codec="int8"`` through the K5 route and through the host
+   oracle (``device_precondition=False``): manifests and CAS objects must
+   be identical; the params
    restored through K6 must equal the host decode bit for bit. K1-K8 must
    all have launched in the phase.
 6. The reliability plane: a ``WeightPublisher`` on a ``CheckpointManager``
@@ -228,7 +237,8 @@
    and whose state bytes must equal the rank's local state bytes (each
    part printed beside the measured one), and gemma3-1b's train_4k,
    prefill_32k and decode_32k on (16, 16), whose records are printed;
-   four ranks on the card serve full-width gemma3-1b (``MAIN_LAYERS``) on
+   four ranks on the card serve full-width gemma3-1b
+   (``MESH_SERVE_LAYERS``) on
    the sharded layout on (2,2) and (1,4) (``--serve-rank``: four prompts
    of 1,024 tokens, eight decode steps, the one-device run's tokens
    forced), every step's logits within ``MESH_SERVE_RTOL`` of the
@@ -239,7 +249,7 @@
    through the registered operator against the direct wrapper, and with
    ``--op-cost`` serving's decode tokens/s both ways (30 serves). One
    ``{"compile": ...}`` line; the kernel rows carry ``launches_compile``.
-14. The mixers phase (``mixers``), last: one device takes a train step and
+14. The mixers phase (``mixers``): one device takes a train step and
    serves a prefill and ``MIXER_STEPS`` decode steps of each of
    ``MIXER_CELLS`` (mamba2-780m at 2 of 48 layers, recurrentgemma-9b at
    3 of 38, full width), then four ranks on the card (``--mixers-rank``,
@@ -251,7 +261,18 @@
    each rank's peak device bytes, and the split mixer's seconds beside
    the whole-leaf mixer's (``_mixer_times``). One ``{"mixers": ...}``
    line; the kernel rows carry ``launches_mixers``.
-15. Prints one JSON line of per-kernel numbers (CUDA-event times at each
+15. The examples phase (``examples``), last: the port's twins of the four
+   examples (``examples/torch_*.py``) through their ``main(device=)`` on
+   the card at their reduced configs — quickstart, preempt_and_resume and
+   serve_with_cr in this process, one after another, while
+   elastic_rescale runs as its 8 gloo ranks beside them —
+   each with its original's check (digests equal, preempted at 12 and
+   restored from 12, tokens equal, digests across meshes), its seconds and
+   each process's peak device bytes; K7 and K8 must launch in the phase.
+   One ``{"examples": ...}`` line; the kernel rows carry
+   ``launches_examples`` (the elastic ranks count K7 and K8 only; the
+   others are null there).
+16. Prints one JSON line of per-kernel numbers (CUDA-event times at each
    path's largest shapes, bounds from the bytes or operations each kernel
    needs, the plain version's and a library call's time; K7 also at every
    shape of ``K7_SHAPES`` with the L2 cold, each route forced; K8 also at the
@@ -285,6 +306,7 @@ when it ends.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import os
@@ -309,12 +331,13 @@ F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 MIN_FREE_BYTES = 25e9
 MiB = 1 << 20
-# gemma3-1b's layers in the checkpoint round, of 26: one period of its
-# five-local, one-global attention pattern (the full depth would take the
-# script past its time limit); the reliability phase's, two, to keep the
-# script inside its limit (its publishes, syncs, scrub and inspections
-# move the params' bytes: 0.93 GB at six layers, 0.72 GB at two)
-MAIN_LAYERS = 6
+# gemma3-1b's layers in the checkpoint round, of 26, and the reliability
+# phase's: two, to keep the script inside its limit (the engine treats a
+# local and a global layer's leaves alike; the round moves the state's
+# bytes, 3.56 GB at two layers and 4.63 GB at six; the reliability phase's
+# publishes, syncs, scrub and inspections the params', 0.72 GB at two and
+# 0.93 GB at six)
+MAIN_LAYERS = 2
 RELIABILITY_LAYERS = 2
 # K4's earlier design (tile sums, a per-plane tile scan, then the inverse:
 # three launches that read the input twice) is timed beside it where git
@@ -322,6 +345,9 @@ RELIABILITY_LAYERS = 2
 K4_EARLIER_COMMIT = "cffcb76"
 PHASE_S: dict = {}             # wall seconds of each phase of this run
 T_START = time.monotonic()
+
+
+CURRENT_PHASE = ["setup", ""]      # (phase, segment): the sampler's key
 
 
 class phase:
@@ -334,10 +360,58 @@ class phase:
 
     def __enter__(self):
         self.t0 = time.monotonic()
+        CURRENT_PHASE[:] = [self.name, ""]
 
     def __exit__(self, *exc):
         PHASE_S[self.name] = time.monotonic() - self.t0
+        CURRENT_PHASE[:] = ["between", ""]
         say(f"phase {self.name}: {PHASE_S[self.name]:.3f} s")
+
+
+class StackSampler:
+    """With ``--stacks``: a daemon thread samples every other thread's
+    Python stack each `period` seconds and counts, per phase, the
+    innermost `depth` frames of each sample (a thread blocked in a C call,
+    a read, an fsync or a lock shows as the line that made the call).
+    ``write(path)`` writes each phase's most frequent stacks with their
+    share of that phase's samples."""
+
+    def __init__(self, period: float = 0.01, depth: int = 4):
+        import collections
+        import threading
+        self.period, self.depth = period, depth
+        self.counts = collections.defaultdict(collections.Counter)
+        self.samples = collections.Counter()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        me = __import__("threading").get_ident()
+        while not self._stop.wait(self.period):
+            ph = "/".join(p for p in CURRENT_PHASE if p)
+            for ident, frame in sys._current_frames().items():
+                if ident == me:
+                    continue
+                key, f = [], frame
+                while f is not None and len(key) < self.depth:
+                    key.append(f"{Path(f.f_code.co_filename).name}:"
+                               f"{f.f_lineno}:{f.f_code.co_name}")
+                    f = f.f_back
+                self.counts[ph][" < ".join(key)] += 1
+                self.samples[ph] += 1
+
+    def write(self, path: Path, top: int = 40):
+        self._stop.set()
+        self._thread.join()
+        lines = []
+        for ph, c in self.counts.items():
+            n = self.samples[ph]
+            lines.append(f"== {ph}: {n} thread samples, period "
+                         f"{self.period} s")
+            for key, k in c.most_common(top):
+                lines.append(f"{k / n:7.3f} {k:7d}  {key}")
+        path.write_text("\n".join(lines) + "\n")
 
 
 def fail(msg: str):
@@ -1711,7 +1785,8 @@ def model_kernel_table(dev, launches: dict) -> list:
 TRAIN = dict(batch=4, seq_len=1024, seed=0)
 TRAIN_STEPS = 4
 PREEMPT_AFTER = 3
-# gemma3-1b's layers in the training phase, of 26: as MAIN_LAYERS
+# gemma3-1b's layers in the training phase, of 26: one period of its
+# five-local, one-global attention pattern
 TRAIN_LAYERS = 6
 
 
@@ -1801,6 +1876,7 @@ def preempt_resume(cfg, root: Path, dev, profile: bool = False,
 
     stats, launches = {}, {}
     # ---- run A: uninterrupted -----------------------------------------
+    CURRENT_PHASE[1] = "run_a"
     torch.cuda.reset_peak_memory_stats(dev)
     tA = Trainer(cfg, TrainerConfig(workdir=str(root / "a"), log_every=1,
                                     ckpt_every=0, **TRAIN),
@@ -1847,6 +1923,7 @@ def preempt_resume(cfg, root: Path, dev, profile: bool = False,
     if not all(math.isfinite(x) for x in stats["loss"]):
         fail(f"{cfg.arch_id} training loss is not finite: {stats['loss']}")
     # ---- run B: preempted after step 3 --------------------------------
+    CURRENT_PHASE[1] = "run_b"
     tcfg_b = TrainerConfig(workdir=str(root / "b"), log_every=1, **TRAIN,
                            **{**TRAIN_CKPT, "ckpt_every": TRAIN_STEPS})
     tB = Trainer(cfg, tcfg_b, store=store("b"), device=dev)
@@ -1878,6 +1955,7 @@ def preempt_resume(cfg, root: Path, dev, profile: bool = False,
     del tB
     torch.cuda.empty_cache()
     # ---- resume: K4 decodes every params leaf on restore --------------
+    CURRENT_PHASE[1] = "restore"
     tC = Trainer(cfg, tcfg_b, store=store("b"), device=dev)
     _record_rounds(tC.manager, rounds)
     ends: list = []
@@ -1910,8 +1988,10 @@ def preempt_resume(cfg, root: Path, dev, profile: bool = False,
         on_restored(tC)
         check_s = time.monotonic() - t1
     reset_counts()
+    CURRENT_PHASE[1] = "resumed"
     out = tC.fit(TRAIN_STEPS)
     launches["resumed"] = read_counts()
+    CURRENT_PHASE[1] = ""
     stats["restore_to_first_step_s"] = ends[0] - t0 - check_s
     stats["resumed_loss"] = [h["loss"] for h in tC.history]
     digest_c = tC.params_digest()
@@ -1982,13 +2062,16 @@ def training(dev, card: str, profile: bool = False):
         mgr_d = int8_manager("int8_device")
         mgr_h = int8_manager("int8_host", device_precondition=False)
         step = TRAIN_STEPS
+        # the params, the leaves the int8 codec encodes: the moments would
+        # go raw through both routes alike
+        params = {"params": state["params"]}
         t0 = time.monotonic()
         k5_before = read_counts()["quantize_blocks"]
-        rep_d = mgr_d.save(state, step)
+        rep_d = mgr_d.save(params, step)
         stats["int8_device_save_s"] = time.monotonic() - t0
         k5 = read_counts()["quantize_blocks"] - k5_before
         t0 = time.monotonic()
-        rep_h = mgr_h.save(state, step)
+        rep_h = mgr_h.save(params, step)
         stats["int8_host_save_s"] = time.monotonic() - t0
         if read_counts()["quantize_blocks"] != k5_before + k5 or \
                 k5 < n_params:
@@ -2001,7 +2084,7 @@ def training(dev, card: str, profile: bool = False):
         if leaves_d != leaves_h or objs["int8_device"] != objs["int8_host"]:
             fail("int8 saves: the K5 route's manifest or CAS objects differ "
                  "from the host oracle's")
-        abstract = {"params": {n: t for n, t in state["params"].items()}}
+        abstract = params
         t0 = time.monotonic()
         k6_before = read_counts()["dequantize_blocks"]
         got, _ = mgr_d.restore(abstract, step=step, validate=False)
@@ -2032,7 +2115,7 @@ def training(dev, card: str, profile: bool = False):
             f"host decode")
         mgr_d.close()
         mgr_h.close()
-        del state, got, ref
+        del state, params, got, ref
         segments["int8"] = read_counts()
     finally:
         os.environ.pop("REPRO_CKPT_KEEPALIVE_S", None)
@@ -4070,9 +4153,12 @@ def parallel(dev, card: str, zoo_stats: dict) -> dict:
 # (the Trainer sets none)
 PEAK_RTOL = 0.25               # predicted step peak vs measured, a rank
 COMPILE_SHAPES = ("train_4k", "prefill_32k", "decode_32k")  # gemma3-1b
-# serving on the layout: gemma3-1b at full width, MAIN_LAYERS, four prompts
-# of 1,024 tokens and eight decode steps, the one-device run's tokens
-# forced, on each mesh over four ranks sharing the card
+# serving on the layout: gemma3-1b at full width, MESH_SERVE_LAYERS (one
+# period of its five-local, one-global attention pattern, so that the
+# global layer's full-length cache is sharded too), four prompts of 1,024
+# tokens, past the 512 window, and eight decode steps, the one-device
+# run's tokens forced, on each mesh over four ranks sharing the card
+MESH_SERVE_LAYERS = 6
 MESH_SERVE = dict(batch=4, prompt_len=1024, steps=8, seed=5)
 MESH_SERVE_MESHES = ((2, 2), (1, 4))
 MESH_SERVE_CACHE = MESH_SERVE["prompt_len"] + MESH_SERVE["steps"]
@@ -4094,7 +4180,7 @@ def _gemma_serve_model():
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     return Model(dataclasses.replace(get_config("gemma3-1b"),
-                                     n_layers=MAIN_LAYERS))
+                                     n_layers=MESH_SERVE_LAYERS))
 
 
 def _serve_tokens(dev, vocab: int):
@@ -4284,7 +4370,7 @@ def mesh_serving(dev, root: Path) -> dict:
 
 def _aot_prefill(dev):
     """(prefill function, params, tokens) of the AOT check: gemma3-1b at
-    full width, MAIN_LAYERS, seeded, on the card."""
+    full width, MESH_SERVE_LAYERS, seeded, on the card."""
     model = _gemma_serve_model()
     params = model.init(seed=MESH_SERVE["seed"], device=dev)
     tokens = _serve_tokens(dev, model.cfg.vocab_size)
@@ -5000,6 +5086,102 @@ def mixers(dev, card: str) -> dict:
     return out
 
 
+EXAMPLES_IN_PROCESS = ("quickstart", "preempt_and_resume", "serve_with_cr")
+EXAMPLE_ELASTIC = "elastic_rescale"
+
+
+def _example(name: str):
+    """``examples/torch_<name>.py`` as a module."""
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example_report(name: str, res: dict, seconds: float, launches: dict,
+                    peaks: list) -> dict:
+    out = {"seconds": seconds, "check": res["check"],
+           "peak_device_bytes": peaks}
+    shutil.rmtree(res["workdir"], ignore_errors=True)
+    say(f"example {name}: {seconds:.3f} s, {json.dumps(out['check'])}, "
+        f"peaks {peaks}, launches {json.dumps(launches)}")
+    return out
+
+
+def examples(dev) -> dict:
+    """The examples phase: each twin's ``main(device=dev)``, its seconds,
+    its check and launches, and each process's peak device bytes; the
+    twins' temp dirs under ``build/``, removed as each ends. The elastic
+    twin's 8 ranks (processes of their own, which report their K7/K8
+    launches and peaks) run in a thread beside the in-process twins, which
+    run one after another, their launches and peak read around each.
+    Fails if a check fails or K7 or K8 never launched."""
+    import tempfile
+    import threading
+
+    import torch
+    root = ROOT / "build" / "chip_smoke_examples"
+    shm = Path("/dev/shm") / f"repro-bb-{os.getpid()}"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    saved_tempdir, tempfile.tempdir = tempfile.tempdir, str(root)
+    out, launches, elastic = {}, {}, {}
+
+    def run_elastic():
+        t0 = time.monotonic()
+        try:
+            elastic["res"] = _example(EXAMPLE_ELASTIC).main(device=dev)
+        except Exception as e:      # reported once the thread is joined
+            elastic["error"] = repr(e)
+        elastic["seconds"] = time.monotonic() - t0
+
+    worker = threading.Thread(target=run_elastic, name="example-elastic")
+    try:
+        worker.start()
+        for name in EXAMPLES_IN_PROCESS:
+            # the serving store's fast tier is per process under /dev/shm,
+            # where an earlier serve's checkpoint would be a resume point
+            shutil.rmtree(shm, ignore_errors=True)
+            mod = _example(name)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            t0 = time.monotonic()
+            res = mod.main(device=dev)
+            torch.cuda.synchronize()
+            launches[name] = read_counts()
+            out[name] = _example_report(
+                name, res, time.monotonic() - t0, launches[name],
+                [torch.cuda.max_memory_allocated(dev)])
+    finally:
+        # the ranks are stopped by the twin's own main, never left behind
+        worker.join()
+        tempfile.tempdir = saved_tempdir
+        shutil.rmtree(shm, ignore_errors=True)
+        if "res" not in elastic:
+            shutil.rmtree(root, ignore_errors=True)
+    if "error" in elastic:
+        fail(f"example {EXAMPLE_ELASTIC} failed: {elastic['error']}")
+    ranks = elastic["res"]["ranks"]
+    launches[EXAMPLE_ELASTIC] = {
+        k: (sum(r["launches"][k] for r in ranks)
+            if k in ("rmsnorm", "flash_attention") else None)
+        for k in _counters()}
+    out[EXAMPLE_ELASTIC] = _example_report(
+        EXAMPLE_ELASTIC, elastic["res"], elastic["seconds"],
+        launches[EXAMPLE_ELASTIC], [r["peak_device_bytes"] for r in ranks])
+    shutil.rmtree(root, ignore_errors=True)
+    for name, rep in out.items():
+        if not rep["check"]["ok"]:
+            fail(f"example {name} failed its check: "
+                 f"{json.dumps(rep['check'])}")
+    for k in ("rmsnorm", "flash_attention"):
+        if sum(c[k] for c in launches.values()) <= 0:
+            fail(f"kernel {k} was not launched in the examples phase")
+    return {**out, "launches": launches}
+
+
 def _leaves(tree):
     from repro_torch.core.split_state import leaf_paths
     return [t for _, t in leaf_paths(tree)]
@@ -5022,6 +5204,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    if "--stacks" in sys.argv[1:]:
+        import atexit
+        atexit.register(StackSampler().write,
+                        out_dir / "chip_smoke_stacks.txt")
     card = card_line()
     say(card)
     say(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -5155,6 +5341,20 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--examples-only" in sys.argv[1:]:
+        model_kernel_parity(dev)
+        with phase("examples"):
+            ex = examples(dev)
+        (out_dir / "chip_smoke_examples.json").write_text(
+            json.dumps({"card": card, "examples": ex, "phase_s": PHASE_S},
+                       indent=1))
+        say(json.dumps({"phase_s": PHASE_S}))
+        say(card)
+        say(json.dumps({"examples": ex}))
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--sharding-only" in sys.argv[1:]:
         sh = sharding(dev, card)
         say(card)
@@ -5265,6 +5465,11 @@ def main() -> int:
     for row in rows:
         row["launches_mixers"] = {
             seg: c[row["name"]] for seg, c in mix["launches"].items()}
+    with phase("examples"):
+        ex = examples(dev)
+    for row in rows:
+        row["launches_examples"] = {
+            seg: c[row["name"]] for seg, c in ex["launches"].items()}
     PHASE_S["total"] = time.monotonic() - T_START
     say(json.dumps({"phase_s": PHASE_S}))
     say(card)
@@ -5277,6 +5482,7 @@ def main() -> int:
     say(json.dumps({"parallel": par}))
     say(json.dumps({"compile": comp}))
     say(json.dumps({"mixers": mix}))
+    say(json.dumps({"examples": ex}))
     say(json.dumps({"main_path": stats, "serving": serve_stats,
                     "training": train_stats}))
     say(json.dumps({"kernels": rows}))
@@ -5286,7 +5492,8 @@ def main() -> int:
                     "reliability": rel, "zoo": zoo_stats, "families": fam,
                     "zoo_serving": zs,
                     "remat": rem, "sharding": shard, "parallel": par, "compile": comp,
-                    "mixers": mix, "kernels": rows, "phase_s": PHASE_S},
+                    "mixers": mix, "examples": ex, "kernels": rows,
+                    "phase_s": PHASE_S},
                    indent=1))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

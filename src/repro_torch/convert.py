@@ -16,6 +16,7 @@ from .core.codec import dtype_name
 from .core.save_path import to_host
 from .core.split_state import map_leaves
 from .devices import resolve_device
+from .sharding.collectives import full_tensor
 
 
 def from_jax_state(np_tree, device=None, shardings=None):
@@ -57,7 +58,7 @@ def to_numpy_state(state):
     """Nested dict of tensors → nested dict of host numpy arrays; bfloat16
     leaves come back as ``core.codec.BF16`` (their uint16 bit pattern,
     logical dtype ``bfloat16``). A ``DTensor`` leaf is gathered to its
-    full tensor first."""
-    return map_leaves(lambda t: to_host(t.full_tensor()
+    full tensor first (``sharding.collectives.full_tensor``)."""
+    return map_leaves(lambda t: to_host(full_tensor(t)
                                         if hasattr(t, "full_tensor") else t),
                       state)

@@ -388,7 +388,19 @@ def entropy_encode_blocks(u8: np.ndarray, codec: str):
     blkmat = np.concatenate([u8, np.zeros(pad, np.uint8)]).reshape(nb, B)
     blens = np.full(nb, B, np.int64)
     blens[-1] = n - (nb - 1) * B
-    rle_buf, rle_lens = _rle_emissions(u8, nb)
+    # a block's RLE pairs are at least its runs: only a block with fewer
+    # runs than half its length can code shorter as RLE, so the greedy
+    # emission runs over those blocks alone (runs never span blocks)
+    change = np.zeros(nb * B, bool)
+    np.not_equal(u8[1:], u8[:-1], out=change[1:n])
+    change[::B] = True
+    cand = np.flatnonzero(2 * np.count_nonzero(change.reshape(nb, B), axis=1)
+                          < blens)
+    rle_buf = np.zeros((nb, 2 * B), np.uint8)
+    rle_lens = 2 * blens
+    if cand.size:
+        sub = blkmat[cand].reshape(-1)[:int(blens[cand].sum())]
+        rle_buf[cand], rle_lens[cand] = _rle_emissions(sub, cand.size)
     flags = np.zeros(nb, np.uint8)
     dlens = blens.copy()
     use_rle = rle_lens < dlens
@@ -429,16 +441,15 @@ def assemble_block_stream(flags, dlens, padded):
     padded = np.asarray(padded, np.uint8)
     nb = flags.size
     block_lens = 3 + dlens
-    offs = np.cumsum(block_lens) - block_lens
-    out = np.zeros(int(block_lens.sum()), np.uint8)
-    out[offs] = flags
-    out[offs + 1] = (dlens & 0xFF).astype(np.uint8)
-    out[offs + 2] = (dlens >> 8).astype(np.uint8)
-    total = int(dlens.sum())
-    if total:
-        blk = np.repeat(np.arange(nb), dlens)
-        rank = np.arange(total) - np.repeat(np.cumsum(dlens) - dlens, dlens)
-        out[offs[blk] + 3 + rank] = padded[blk, rank]
+    # a record a block (its header, then its padded body), and the stream
+    # the records' first 3 + dlens bytes in order
+    rec = np.empty((nb, 3 + (padded.shape[1] if padded.ndim == 2 else 0)),
+                   np.uint8)
+    rec[:, 0] = flags
+    rec[:, 1] = (dlens & 0xFF).astype(np.uint8)
+    rec[:, 2] = (dlens >> 8).astype(np.uint8)
+    rec[:, 3:] = padded
+    out = rec[np.arange(rec.shape[1])[None, :] < block_lens[:, None]]
     return out, block_lens
 
 
@@ -523,54 +534,148 @@ def _rans_decode_group(bodies, raw_lens, payload):
     return [flat[i, :raw_lens[i]] for i in range(m)]
 
 
-def plane_stream_decode(enc, raw_len: int, codec: str) -> np.ndarray:
-    """Decode a framed block stream back to ``raw_len`` transformed bytes.
-    Works on a whole-payload stream or a single chunk's encoding (same
-    format). Raises ValueError on malformed framing."""
+def _walk_frames(payload: np.ndarray, raw_len: int):
+    """The block headers of a framed stream, in order: (flags, body
+    offsets, body lengths) as int64 arrays, and the offset past the last
+    body. Raises ValueError on a truncated header or body, a raw block
+    whose length is not its block's, and an unknown flag.
+
+    Where a full raw block's header stands (flag 0, length
+    ``ENTROPY_BLOCK``), the headers that follow it are probed at the
+    ``ENTROPY_BLOCK + 3`` stride in windows that double while every one
+    is a full raw block's, so a run of them costs a few vectorized reads;
+    any other block is read in Python."""
+    B = ENTROPY_BLOCK
+    step = B + 3
+    nb = -(-raw_len // B)
+    last = raw_len - B * (nb - 1)
+    nfull = nb if last == B else nb - 1      # blocks of ENTROPY_BLOCK bytes
+    lo, hi = B & 0xFF, B >> 8
+    mv = memoryview(payload)
+    size = payload.size
+    flags = np.zeros(nb, np.int64)
+    offs = np.empty(nb, np.int64)
+    lens = np.full(nb, B, np.int64)
+    one_i, one_flag, one_off, one_len = [], [], [], []
+    pos = i = 0
+    while i < nb:
+        if i < nfull and pos + step <= size and mv[pos] == 0 \
+                and mv[pos + 1] == lo and mv[pos + 2] == hi:
+            k = min(nfull - i, (size - pos) // step)
+            m, w = 1, 16
+            while m < k:
+                hp = pos + step * np.arange(m, min(m + w, k))
+                bad = (payload[hp] != 0) | (payload[hp + 1] != lo) \
+                    | (payload[hp + 2] != hi)
+                if bad.any():
+                    m += int(bad.argmax())
+                    break
+                m += hp.size
+                w *= 2
+            offs[i:i + m] = pos + 3 + step * np.arange(m)
+            i += m
+            pos += m * step
+            continue
+        if pos + 3 > size:
+            raise ValueError("entropy stream truncated (header)")
+        flag = mv[pos]
+        elen = mv[pos + 1] | (mv[pos + 2] << 8)
+        pos += 3
+        if pos + elen > size:
+            raise ValueError("entropy stream truncated (body)")
+        if flag == 0:
+            if elen != (B if i < nb - 1 else last):
+                raise ValueError("raw block length mismatch")
+        elif flag > 2:
+            raise ValueError(f"unknown entropy block flag {flag}")
+        one_i.append(i)
+        one_flag.append(flag)
+        one_off.append(pos)
+        one_len.append(elen)
+        pos += elen
+        i += 1
+    if one_i:
+        flags[one_i] = one_flag
+        offs[one_i] = one_off
+        lens[one_i] = one_len
+    return flags, offs, lens, pos
+
+
+def _rle_decode_blocks(payload, offs, lens, blens) -> np.ndarray:
+    """The RLE blocks at `offs`/`lens` decoded and concatenated in order:
+    one gather of their (run, value) pairs and one ``np.repeat``. Raises
+    ValueError where a block's runs do not sum to its length ``blens``."""
+    if (lens & 1).any():
+        raise ValueError("rle block length mismatch")
+    starts = np.cumsum(lens) - lens
+    idx = np.repeat(offs - starts, lens) + np.arange(int(lens.sum()))
+    pairs = payload[idx]
+    runs = pairs[0::2].astype(np.int64)
+    csum = np.concatenate((np.zeros(1, np.int64), np.cumsum(runs)))
+    if not np.array_equal(csum[(starts + lens) // 2] - csum[starts // 2],
+                          blens):
+        raise ValueError("rle block length mismatch")
+    return np.repeat(pairs[1::2], runs)
+
+
+def plane_stream_decode(enc, raw_len: int, codec: str,
+                        out: np.ndarray | None = None) -> np.ndarray:
+    """Decode a framed block stream back to ``raw_len`` transformed bytes
+    (into `out` where given). Works on a whole-payload stream or a single
+    chunk's encoding (same format). Raises ValueError on malformed
+    framing.
+
+    The headers are walked in order (``_walk_frames``); the bodies are
+    then placed a run of same-flag blocks at a time: consecutive raw
+    blocks as one strided copy (header and body are ``ENTROPY_BLOCK + 3``
+    bytes apart), the RLE blocks through one ``np.repeat`` over all their
+    pairs, the rANS blocks as one vectorized group."""
     if codec not in CHUNK_ENCODED:
         raise ValueError(f"codec {codec!r} has no entropy stage")
     payload = enc if isinstance(enc, np.ndarray) \
         else np.frombuffer(enc, np.uint8)
-    payload = payload.reshape(-1).view(np.uint8)
-    out = np.empty(raw_len, np.uint8)
-    pos = 0
-    done = 0
-    rans_jobs, rans_dst = [], []
-    while done < raw_len:
-        if pos + 3 > payload.size:
-            raise ValueError("entropy stream truncated (header)")
-        flag = int(payload[pos])
-        elen = int(payload[pos + 1]) | (int(payload[pos + 2]) << 8)
-        pos += 3
-        blen = min(ENTROPY_BLOCK, raw_len - done)
-        if pos + elen > payload.size:
-            raise ValueError("entropy stream truncated (body)")
-        if flag == 0:
-            if elen != blen:
-                raise ValueError("raw block length mismatch")
-            out[done:done + blen] = payload[pos:pos + elen]
-        elif flag == 1:
-            pairs = payload[pos:pos + elen]
-            runs = pairs[0::2].astype(np.int64)
-            vals = pairs[1::2]
-            dec = np.repeat(vals, runs)
-            if dec.size != blen:
-                raise ValueError("rle block length mismatch")
-            out[done:done + blen] = dec
-        elif flag == 2:
-            rans_jobs.append(((pos, elen), blen))
-            rans_dst.append(done)
-        else:
-            raise ValueError(f"unknown entropy block flag {flag}")
-        pos += elen
-        done += blen
-    if pos != payload.size:
+    payload = np.ascontiguousarray(payload.reshape(-1).view(np.uint8))
+    if out is None:
+        out = np.empty(raw_len, np.uint8)
+    flags, offs, lens, end = _walk_frames(payload, raw_len)
+    nb = flags.size
+    B = ENTROPY_BLOCK
+    blens = np.full(nb, B, np.int64)
+    if nb:
+        blens[-1] = raw_len - B * (nb - 1)
+    rle = flags == 1
+    dec = _rle_decode_blocks(payload, offs[rle], lens[rle], blens[rle]) \
+        if rle.any() else None
+    if end != payload.size:
         raise ValueError("entropy stream has trailing bytes")
+    rans_jobs, rans_lens, rans_dst = [], [], []
+    bounds = np.concatenate(([0], np.flatnonzero(np.diff(flags)) + 1, [nb])) \
+        if nb else np.zeros(1, np.int64)
+    dp = 0
+    for a, b in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        flag = int(flags[a])
+        if flag == 0:
+            n = b - a
+            if b == nb and blens[-1] != B:     # a short last block
+                n -= 1
+                o = int(offs[-1])
+                out[B * (nb - 1):raw_len] = payload[o:o + int(blens[-1])]
+            if n:
+                o = int(offs[a]) - 3
+                out[B * a:B * (a + n)].reshape(n, B)[:] = \
+                    payload[o:o + n * (B + 3)].reshape(n, B + 3)[:, 3:]
+        elif flag == 1:
+            n = int(blens[a:b].sum())
+            out[B * a:B * a + n] = dec[dp:dp + n]
+            dp += n
+        else:
+            rans_jobs += zip(offs[a:b].tolist(), lens[a:b].tolist())
+            rans_lens += blens[a:b].tolist()
+            rans_dst += range(B * a, B * b, B)
     if rans_jobs:
-        decs = _rans_decode_group([j[0] for j in rans_jobs],
-                                  [j[1] for j in rans_jobs], payload)
-        for dst, dec in zip(rans_dst, decs):
-            out[dst:dst + dec.size] = dec
+        decs = _rans_decode_group(rans_jobs, rans_lens, payload)
+        for dst, d in zip(rans_dst, decs):
+            out[dst:dst + d.size] = d
     return out
 
 
@@ -583,10 +688,11 @@ def plane_decode_chunks(payload, enc_lens, raw_lens, codec: str) -> np.ndarray:
     out = np.empty(int(sum(raw_lens)), np.uint8)
     eoff = roff = 0
     for elen, rlen in zip(enc_lens, raw_lens):
-        out[roff:roff + rlen] = \
-            plane_stream_decode(u8[eoff:eoff + elen], int(rlen), codec)
-        eoff += int(elen)
-        roff += int(rlen)
+        elen, rlen = int(elen), int(rlen)
+        plane_stream_decode(u8[eoff:eoff + elen], rlen, codec,
+                            out=out[roff:roff + rlen])
+        eoff += elen
+        roff += rlen
     if eoff != u8.size:
         raise ValueError("chunk-encoded payload has trailing bytes")
     return out

@@ -19,6 +19,10 @@ is a ``torch.autograd.Function`` whose backward is its forward's adjoint:
                               summed into the replicated total)
   all_to_all(x, g)            dim 0 in equal blocks, block r to rank r;
                               backward: the reverse exchange (the same op)
+  full_tensor(t)              a ``DTensor``'s full tensor (not
+                              differentiable): c10d all-gathers, where
+                              ``DTensor.full_tensor`` issues functional
+                              collectives
   gather_param(t, gathers, replicated)
                               a parameter leaf's local shard to the
                               tensor a layer computes with: copy_to over
@@ -278,3 +282,29 @@ def gather_param(t, gathers=(), replicated=()):
     if not gathers and not replicated:
         return t
     return _functions()["GatherParam"].apply(t, gathers, replicated)
+
+
+def full_tensor(t):
+    """The full tensor of ``DTensor`` `t`, all-gathered over each mesh dim
+    that shards it, innermost first (several mesh dims shard one tensor
+    dim in mesh order, major first). ``DTensor.full_tensor`` issues
+    functional collectives, and gloo does not run those on CUDA tensors:
+    the process dies in ``wait_tensor``. Shard and Replicate placements of
+    even shards only, as the port's partition rules give; uneven shards
+    raise on every rank, before any collective."""
+    x = t.to_local()
+    mesh = t.device_mesh
+    split = [1] * x.dim()
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard():
+            split[pl.dim % x.dim()] *= mesh.size(i)
+        elif not pl.is_replicate():
+            raise ValueError(f"placement {pl} has no full tensor to gather")
+    if any(x.shape[d] * n != t.shape[d] for d, n in enumerate(split)):
+        raise ValueError(f"uneven shards: local {tuple(x.shape)} of "
+                         f"{tuple(t.shape)}, split {split}")
+    for i in reversed(range(mesh.ndim)):
+        pl = t.placements[i]
+        if pl.is_shard():
+            x = _all_gather_raw(x, mesh.get_group(i), pl.dim % x.dim())
+    return x

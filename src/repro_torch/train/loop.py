@@ -38,6 +38,7 @@ from ..devices import resolve_device
 from ..models import Model
 from ..models.model import set_constrainer
 from ..optim import make_optimizer
+from ..sharding.collectives import full_tensor
 from ..sharding.partition import (act_constrainer, batch_spec,
                                   distribute_tree)
 from .steps import make_train_step
@@ -299,14 +300,15 @@ class Trainer:
         """Bit-exactness probe: order-stable sha256 over the ``/``-joined
         leaf names and raw bytes of all params (bf16 as its 2-byte
         patterns, so the JAX package's digest of the same values is the
-        same); a ``DTensor`` leaf is gathered to its full tensor first, so
-        the digest is the same on every mesh."""
+        same); a ``DTensor`` leaf is gathered to its full tensor first
+        (``collectives.full_tensor``), so the digest is the same on every
+        mesh."""
         if self._restore_stream is not None:
             self._finish_streaming_restore()
         h = hashlib.sha256()
         for name, leaf in leaf_paths(self.state["params"]):
             if hasattr(leaf, "full_tensor"):
-                leaf = leaf.full_tensor()
+                leaf = full_tensor(leaf)
             h.update(name.encode())
             h.update(to_host(leaf).tobytes())
         return h.hexdigest()

@@ -1,7 +1,8 @@
-"""The suites of the host modules that the port copies and then edits —
+"""The suites of the host modules that the port copies —
 ``tests/test_cas.py``, ``test_cdc.py``, ``test_storage.py``,
-``test_chunk_exec.py``, ``test_policy.py`` and ``test_preempt.py`` — run
-on the port: each suite's own source, with its ``repro`` imports pointed
+``test_chunk_exec.py``, ``test_policy.py``, ``test_preempt.py``,
+``test_coordinator_drain.py`` and ``test_elastic_plan.py`` — run on the
+port: each suite's own source, with its ``repro`` imports pointed
 at ``repro_torch`` and its shared policy factory at the port's, is loaded
 as a module of its own, and its test functions are collected here as
 ``test_<suite>__<name>``, with their parametrisations and assertions.
@@ -13,8 +14,12 @@ that default is the CPU here.
 
 The copies that ROADMAP calls identical (``errors``, ``namespace``,
 ``atomic``, ``coordinator``, ``elastic``, ``faults``) are held to the
-reference's source apart from the import lines, so their suites need no
-second copy. A few byte checks against the JAX package close the file."""
+reference's source apart from the import lines; the coordinator's and the
+elastic planner's suites run on them all the same. A few byte checks
+against the JAX package and the planner's picks and bytes against the
+reference's on random shard layouts close the file
+(``quiesce_device_state`` on the card is in ``test_torch_suites_cuda.py``,
+which imports no JAX)."""
 import re
 import types
 from pathlib import Path
@@ -29,7 +34,8 @@ from repro_torch.core import checkpoint as tcheckpoint
 
 TESTS = Path(__file__).resolve().parent
 SRC = TESTS.parent / "src"
-SUITES = ("cas", "cdc", "storage", "chunk_exec", "policy", "preempt")
+SUITES = ("cas", "cdc", "storage", "chunk_exec", "policy", "preempt",
+          "coordinator_drain", "elastic_plan")
 IDENTICAL = ("errors", "namespace", "atomic", "coordinator", "elastic",
              "faults")
 
@@ -158,3 +164,59 @@ def test_cdc_chunks_and_digests_match_the_reference(avg, rng):
         assert tcas.chunk_digest(payload[pos:c]) == \
             jcas.chunk_digest(payload[pos:c])
         pos = c
+
+
+def _random_layout(rng):
+    """A random global shape (0–3 dims), its shards: a grid cut of each
+    dimension, now and then a second grid over the first (ranges of two
+    topologies in one history), some shards repeated as replicas, now and
+    then a zero-size shard, and a random target box inside the shape."""
+    ndim = int(rng.integers(0, 4))
+    shape = tuple(int(rng.integers(1, 9)) for _ in range(ndim))
+
+    def grid():
+        cuts = [sorted({0, n, *rng.integers(0, n + 1, rng.integers(0, 3))})
+                for n in shape]
+        boxes = [((), ())]
+        for c in cuts:
+            boxes = [(a + (lo,), b + (hi,)) for a, b in boxes
+                     for lo, hi in zip(c[:-1], c[1:])]
+        return boxes
+
+    boxes = grid() + (grid() if rng.random() < 0.5 else [])
+    boxes += [boxes[i] for i in rng.integers(0, len(boxes),
+                                             rng.integers(0, 3))]
+    if ndim and rng.random() < 0.3:
+        boxes.append((tuple(0 for _ in shape), tuple(0 for _ in shape)))
+    order = rng.permutation(len(boxes))
+    lo = tuple(int(rng.integers(0, n)) for n in shape)
+    hi = tuple(int(rng.integers(a + 1, n + 1)) for a, n in zip(lo, shape))
+    return shape, [boxes[i] for i in order], (lo, hi)
+
+
+def test_elastic_plan_picks_and_bytes_match_the_reference():
+    """``plan_reads``/``assemble`` of both packages on 400 seeded random
+    shard layouts: the same picks in the same order (ranges and handles)
+    and the same assembled bytes."""
+    from repro.core import elastic as jel
+    from repro_torch.core import elastic as tel
+    rng = np.random.default_rng(20260)
+    for case in range(400):
+        shape, boxes, (lo, hi) = _random_layout(rng)
+        data = rng.integers(-2**31, 2**31, shape, dtype=np.int64) \
+            .astype(np.int32)
+        got = {}
+        for name, mod in (("port", tel), ("ref", jel)):
+            target = mod.ShardRange(lo, hi)
+            avail = [(mod.ShardRange(a, b), i)
+                     for i, (a, b) in enumerate(boxes)]
+            picks = mod.plan_reads(target, avail)
+            pieces = [(r, data[tuple(slice(a, b) for a, b in
+                                     zip(r.start, r.stop))])
+                      for r, _ in picks]
+            got[name] = ([(r.start, r.stop, h) for r, h in picks],
+                         mod.assemble(target, pieces, np.int32))
+        assert got["port"][0] == got["ref"][0], case
+        assert got["port"][1].tobytes() == got["ref"][1].tobytes(), case
+        want = data[tuple(slice(a, b) for a, b in zip(lo, hi))]
+        np.testing.assert_array_equal(got["port"][1], want)
